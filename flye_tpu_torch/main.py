@@ -1,0 +1,369 @@
+"""flye_tpu_torch command-line interface and stage pipeline.
+
+Port of `flye_tpu/main.py` (behavioral port of the reference CLI and
+Job framework, flye/main.py): the same parser, output layout and
+job-granular resume via params.json.  The stages ported so far are
+configure -> assembly -> consensus (reads in, `10-consensus/
+consensus.fasta` out); a run must stop there (`--stop-after consensus`,
+or an earlier stage).  The later stages (repeat, trestle, contigger,
+plasmids, polishing, finalize), `--polish-target`, `--profile` and
+`--shards` above 1 raise "not yet ported".
+
+Usage:
+    python -m flye_tpu_torch.main --pacbio-raw reads.fasta -o out_dir \
+        -g 1m --stop-after consensus --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+from typing import Dict, List, Optional
+
+from flye_tpu_torch.config import Config, PIPELINE, setup_run_params
+from flye_tpu_torch.io.fasta import write_fasta
+from flye_tpu_torch.io.seqstore import SequenceStore
+from flye_tpu_torch.utils.logs import configure_logging
+
+logger = logging.getLogger("flye_tpu_torch")
+
+READ_TYPE_FLAGS = {
+    # flag -> (platform, read_type)
+    "pacbio_raw": ("pacbio", "raw"),
+    "pacbio_corr": ("pacbio", "corrected"),
+    "pacbio_hifi": ("pacbio", "hifi"),
+    "nano_raw": ("nano", "raw"),
+    "nano_corr": ("nano", "corrected"),
+    "subassemblies": ("pacbio", "subasm"),
+}
+
+
+class PipelineException(Exception):
+    pass
+
+
+class Job:
+    """A resumable pipeline stage (reference: flye/main.py:43-83)."""
+
+    name = "job"
+
+    def __init__(self, ctx: "RunContext"):
+        self.ctx = ctx
+        self.out_files: Dict[str, str] = {}
+
+    def run(self) -> None:
+        raise NotImplementedError
+
+    def load_state(self) -> None:
+        """Rebuild this stage's in-memory context from its on-disk
+        outputs; called instead of run() for stages skipped by
+        --resume/--resume-from (reference resumes the same way: later
+        stages reload earlier stages' files, flye/main.py:539-576)."""
+
+    def completed(self) -> bool:
+        return all(os.path.exists(p) for p in self.out_files.values())
+
+    def save_checkpoint(self) -> None:
+        state = {
+            "stage_name": self.name,
+            "pipeline_version": PIPELINE["pipeline_version"],
+            "min_overlap": self.ctx.min_overlap,
+            "min_read_length": self.ctx.min_read_length,
+        }
+        with open(self.ctx.params_file, "w") as f:
+            json.dump(state, f, indent=1)
+
+
+class RunContext:
+    def __init__(self, args):
+        self.args = args
+        self.out_dir = args.out_dir
+        self.params_file = os.path.join(self.out_dir, "params.json")
+        self.platform, self.read_type = None, None
+        for flag, (platform, rtype) in READ_TYPE_FLAGS.items():
+            if getattr(args, flag, None):
+                self.platform, self.read_type = platform, rtype
+                self.reads_files = getattr(args, flag)
+        # legacy R7 pore error model (reference ships both r94 and r7
+        # matrices, flye/config/py_cfg.py:52-67)
+        if (self.platform == "nano" and
+                getattr(args, "nano_model", "r94") == "r7"):
+            self.platform = "nano_r7"
+        self.cfg: Optional[Config] = None
+        self.min_overlap = args.min_overlap or 0
+        self.min_read_length = 0
+        self.reads: Optional[SequenceStore] = None
+        self.genome_size = args.genome_size
+
+    def subdir(self, name: str) -> str:
+        path = os.path.join(self.out_dir, name)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    def load_reads(self) -> SequenceStore:
+        if self.reads is None:
+            self.reads = SequenceStore.from_files(self.reads_files)
+            logger.info("Loaded %d reads, %d total bases",
+                        len(self.reads), self.reads.total_length)
+        return self.reads
+
+
+class JobConfigure(Job):
+    name = "configure"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+
+    def run(self):
+        reads = self.ctx.load_reads()
+        params = setup_run_params(
+            [reads.length(i) for i in reads.ids()],
+            self.ctx.read_type,
+            genome_size=self.ctx.genome_size,
+            min_overlap=self.ctx.args.min_overlap,
+            asm_coverage=self.ctx.args.asm_coverage,
+            meta=self.ctx.args.meta)
+        self.ctx.min_overlap = params["min_overlap"]
+        self.ctx.min_read_length = params["min_read_length"]
+        common = dict(
+            extra_params=self.ctx.args.extra_params,
+            min_overlap=self.ctx.min_overlap,
+            uneven_coverage=int(self.ctx.args.meta),
+            keep_haplotypes=int(self.ctx.args.keep_haplotypes))
+        if getattr(self.ctx.args, "config", None):
+            self.ctx.cfg = Config.from_cfg(
+                self.ctx.args.config, self.ctx.read_type, **common)
+        else:
+            self.ctx.cfg = Config(self.ctx.read_type, **common)
+
+
+class JobAssembly(Job):
+    name = "assembly"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        self.out_files["assembly"] = os.path.join(
+            ctx.subdir("00-assembly"), "draft_assembly.fasta")
+
+    def run(self):
+        from flye_tpu_torch.assemble import assemble_disjointigs
+        reads = self.ctx.load_reads()
+        if self.ctx.min_read_length:
+            filtered = SequenceStore()
+            for sid in reads.ids():
+                if reads.length(sid) >= self.ctx.min_read_length:
+                    filtered.add(reads.name(sid), reads.get(sid))
+            reads = filtered
+        disjointigs = assemble_disjointigs(
+            reads, self.ctx.cfg, self.ctx.min_overlap,
+            self.ctx.genome_size)
+        if not disjointigs:
+            raise PipelineException(
+                "No disjointigs were assembled - please check if the "
+                "read type and genome size parameters are correct")
+        write_fasta(disjointigs, self.out_files["assembly"])
+
+
+class JobConsensus(Job):
+    name = "consensus"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        self.out_files["consensus"] = os.path.join(
+            ctx.subdir("10-consensus"), "consensus.fasta")
+
+    def run(self):
+        from flye_tpu_torch.polishing.polisher import polish
+        reads = self.ctx.load_reads()
+        drafts = SequenceStore.from_file(
+            os.path.join(self.ctx.out_dir, "00-assembly",
+                         "draft_assembly.fasta"))
+        pairs = [(drafts.name(i), drafts.get(i)) for i in drafts.ids()]
+        mb = (self.ctx.cfg.polish_max_bubble
+              if "polish_max_bubble" in self.ctx.cfg else None)
+        consensus = polish(pairs, reads, self.ctx.platform, num_iters=1,
+                           max_bubble=mb, trim_ends=True)
+        consensus = [(n, s) for n, s in consensus if len(s)]
+        write_fasta(consensus, self.out_files["consensus"])
+
+
+# the JAX package's stages after consensus, in pipeline order
+NOT_PORTED_STAGES = ("repeat", "trestle", "contigger", "plasmids",
+                     "polishing", "finalize")
+
+
+def create_job_list(ctx: RunContext) -> List[Job]:
+    return [JobConfigure(ctx), JobAssembly(ctx), JobConsensus(ctx)]
+
+
+def run_pipeline(args) -> int:
+    from flye_tpu_torch.parallel.runtime import init_runtime
+
+    ctx = RunContext(args)
+    jobs = create_job_list(ctx)
+    names = [j.name for j in jobs]
+    if args.stop_after not in names:
+        raise PipelineException(
+            f"stages after consensus ({', '.join(NOT_PORTED_STAGES)}) "
+            "are not yet ported to flye_tpu_torch: run with "
+            "--stop-after consensus (or an earlier stage)")
+    init_runtime(args.shards, args.device)
+
+    start_from = 0
+    if args.resume or args.resume_from:
+        if not os.path.exists(ctx.params_file):
+            raise PipelineException("Can't resume: no params.json found")
+        with open(ctx.params_file) as f:
+            state = json.load(f)
+        if state.get("pipeline_version") != PIPELINE["pipeline_version"]:
+            raise PipelineException(
+                "Can't resume: pipeline version mismatch")
+        ctx.min_overlap = state.get("min_overlap", 0)
+        ctx.min_read_length = state.get("min_read_length", 0)
+        target = args.resume_from or state.get("stage_name")
+        if target not in names:
+            raise PipelineException(f"Unknown stage: {target}")
+        start_from = names.index(target)
+        # stages before the resume point must be complete
+        for j in jobs[:start_from]:
+            if not j.completed():
+                raise PipelineException(
+                    f"Can't resume: stage '{j.name}' outputs missing")
+        # configure must re-run to rebuild the in-memory config
+        if start_from > 0:
+            jobs[0].run()
+
+    for i, job in enumerate(jobs):
+        if i < start_from:
+            job.load_state()
+            continue
+        job.save_checkpoint()
+        logger.info(">>> STAGE: %s", job.name)
+        job.run()
+        if args.stop_after == job.name:
+            break
+    logger.info("Stopped after stage '%s'", args.stop_after)
+    return 0
+
+
+def parse_genome_size(text: Optional[str]) -> Optional[int]:
+    if not text:
+        return None
+    text = text.strip().lower()
+    mult = 1
+    if text[-1] in "kmg":
+        mult = {"k": 10 ** 3, "m": 10 ** 6, "g": 10 ** 9}[text[-1]]
+        text = text[:-1]
+    return int(float(text) * mult)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="flye_tpu_torch",
+        description="GPU (PyTorch/CUDA) port of the flye_tpu de novo "
+                    "assembler for long noisy reads")
+    read_group = parser.add_mutually_exclusive_group(required=True)
+    for flag in READ_TYPE_FLAGS:
+        read_group.add_argument(f"--{flag.replace('_', '-')}", nargs="+",
+                                metavar="reads", dest=flag)
+    parser.add_argument("-o", "--out-dir", required=True)
+    parser.add_argument("-g", "--genome-size", type=parse_genome_size,
+                        default=None)
+    parser.add_argument("-t", "--threads", type=int, default=1,
+                        help="host threads")
+    parser.add_argument("--shards", type=int, default=None,
+                        help="number of devices (only 1 is ported to "
+                        "flye_tpu_torch yet)")
+    parser.add_argument("--polish-target", default=None, metavar="FASTA",
+                        help="run the standalone polisher on this "
+                             "sequence file instead of assembling "
+                             "(reference: flye --polish-target)")
+    parser.add_argument("--hifi-error", type=float, default=None,
+                        metavar="FLOAT",
+                        help="expected HiFi error rate (e.g. 0.003); "
+                             "only with --pacbio-hifi")
+    parser.add_argument("-i", "--iterations", type=int, default=1,
+                        help="number of polishing iterations")
+    parser.add_argument("-m", "--min-overlap", type=int, default=None)
+    parser.add_argument("--asm-coverage", type=int, default=None)
+    parser.add_argument("--meta", action="store_true")
+    parser.add_argument("--trestle", action="store_true",
+                        help="enable Trestle unbridged-repeat "
+                             "resolution (reference: flye --trestle, "
+                             "opt-in since 2.8)")
+    parser.add_argument("--no-trestle", action="store_true",
+                        help=argparse.SUPPRESS)  # legacy opt-out
+    parser.add_argument("--plasmids", action="store_true",
+                        help="recover short unassembled plasmids")
+    parser.add_argument("--keep-haplotypes", action="store_true")
+    parser.add_argument("--nano-model", choices=["r94", "r7"],
+                        default="r94",
+                        help="nanopore pore chemistry error model "
+                             "(only with --nano-raw/--nano-corr)")
+    parser.add_argument("--extra-params", default=None)
+    parser.add_argument("--config", default=None, metavar="CFG",
+                        help="reference-format .cfg parameter file "
+                             "(key = value, %%include supported) layered "
+                             "over the built-in read-type defaults")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--resume-from", default=None)
+    parser.add_argument("--stop-after", default=None)
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--profile", action="store_true",
+                        help="profiler trace of the run (not yet "
+                             "ported to flye_tpu_torch; the JAX package "
+                             "writes it under OUT_DIR/profile, its analog of "
+                             "the reference's gprof build)")
+    parser.add_argument("--device", choices=["cuda", "cpu"],
+                        default="cuda",
+                        help="device of the tensor work: cuda runs the "
+                             "CUDA kernels (and fails without a GPU); cpu "
+                             "runs their plain versions and the native "
+                             "CPU climber")
+    parser.add_argument("-v", "--version", action="version",
+                        version="flye_tpu_torch 0.1.0")
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.hifi_error is not None:
+        if not getattr(args, "pacbio_hifi", None):
+            parser.error("--hifi-error can only be used with "
+                         "--pacbio-hifi")
+        # reference plumbing: flye/assembly/assemble.py:58-60 forwards
+        # the rate as an assemble_ovlp_divergence override
+        extra = f"assemble_ovlp_divergence={args.hifi_error}"
+        args.extra_params = (f"{args.extra_params},{extra}"
+                             if args.extra_params else extra)
+    os.makedirs(args.out_dir, exist_ok=True)
+    configure_logging(os.path.join(args.out_dir, "flye.log"),
+                      debug=args.debug)
+    if args.polish_target or args.profile:
+        parser.error("--polish-target and --profile are not yet ported "
+                     "to flye_tpu_torch")
+    try:
+        return run_pipeline(args)
+    except PipelineException as e:
+        logger.error("%s", e)
+        logger.error("Pipeline aborted")
+        return 1
+    except Exception as e:  # device-failure diagnostics (the analog of
+        # the reference's SIGKILL->"ran out of memory" translation,
+        # reference: flye/assembly/assemble.py:70-73 + segfault
+        # handlers in src/common/utils.h)
+        msg = str(e)
+        if "out of memory" in msg.lower():
+            logger.error("Device out of memory: %s", msg.splitlines()[0])
+        else:
+            logger.exception("Unexpected failure")
+        logger.error("Pipeline aborted")
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

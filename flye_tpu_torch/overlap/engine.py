@@ -1,0 +1,827 @@
+"""Overlap detection engine: index probe -> chain -> score -> filter.
+
+Port of `flye_tpu/overlap/engine.py` (behavioral port of
+OverlapDetector/OverlapContainer, reference: src/sequence/overlap.{h,cpp}):
+
+- index probing, posting expansion, group preparation, small-group chain
+  DP, backtracking and overlap tests run in the native C++ helpers;
+- groups wider than `host_dp_max` chain on the runtime's device through
+  `ops.chain.chain_dp_multi` (the K1 CUDA kernel on a GPU);
+- base-level divergence goes through the anchored segment batcher
+  (ops.align) instead of edlib.
+
+The JAX package's pure-Python fallback path (used there only when the
+native module is missing) is not carried over: the port's native
+module is required.
+
+One engine serves every consumer like the reference's constructor flags
+(reference: src/sequence/overlap.h:314-335): all-vs-all reads
+(only_max_ext), ava-disjointigs with kept alignments + bad-mapping
+partitioning (repeat graph), reads->edges and reads->contigs mapping.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from flye_tpu_torch.index.kmer_index import KmerIndex
+from flye_tpu_torch.io.seqstore import SequenceStore
+from flye_tpu_torch.ops.align import SegmentBatcher, anchored_divergence
+from flye_tpu_torch.ops.chain import chain_dp_multi
+from flye_tpu_torch.overlap.structs import Overlap
+from flye_tpu_torch.utils.ds import DisjointSet
+
+logger = logging.getLogger("flye_tpu_torch")
+
+# per-phase wall-clock accumulators for the ava hot loop (the reference
+# keeps the same thread-local timer discipline,
+# reference: overlap.cpp:128-158); read with phase_times(), reset with
+# reset_phase_times() — bench.py prints them to attribute the wall
+from collections import defaultdict as _dd
+from time import perf_counter as _pc
+
+_PHASE: Dict[str, float] = _dd(float)
+
+# the prefetch thread pipeline may issue device calls from two threads;
+# device sections take this lock so one batch's DP runs at a time (host
+# prep/finish still overlaps: native C++ sections release the GIL)
+import threading as _threading
+
+_DEVICE_LOCK = _threading.Lock()
+
+
+def phase_times() -> Dict[str, float]:
+    return dict(_PHASE)
+
+
+def reset_phase_times() -> None:
+    _PHASE.clear()
+
+
+class _phase:
+    __slots__ = ("name", "t0")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = _pc()
+
+    def __exit__(self, *a):
+        _PHASE[self.name] += _pc() - self.t0
+
+
+# fraction of min_overlap that must be covered by unique k-mer matches
+# for a target to be considered (reference: overlap.cpp:110-111)
+_MIN_KMER_SURVIVAL_RATE = 0.01
+# match-count buckets for the chaining DP batches
+_CHAIN_BUCKETS = (64, 256, 1024, 4096, 16384)
+_LOOKBACK = 1024
+
+
+class OverlapEngine:
+    """Finds overlaps of query sequences against an indexed target set."""
+
+    # matches per posting-expansion chunk (memory bound; see
+    # _collect_matches_batch)
+    gather_cap = 64 << 20
+
+    def __init__(
+        self,
+        target_store: SequenceStore,
+        index: KmerIndex,
+        max_jump: int,
+        min_overlap: int,
+        max_overhang: int,
+        keep_alignment: bool = False,
+        only_max_ext: bool = False,
+        max_divergence: float = 1.0,
+        nucl_alignment: bool = False,
+        partition_bad_mappings: bool = False,
+        use_hpc: bool = False,
+        max_cur_overlaps: int = 0,
+        thin_anchors: bool = True,
+    ):
+        self.targets = target_store
+        self.index = index
+        self.k = index.k
+        self.max_jump = max_jump
+        self.min_overlap = min_overlap
+        self.max_overhang = max_overhang
+        self.check_overhang = max_overhang > 0
+        self.keep_alignment = keep_alignment
+        self.only_max_ext = only_max_ext
+        self.max_divergence = max_divergence
+        self.nucl_alignment = nucl_alignment
+        self.partition_bad_mappings = partition_bad_mappings
+        self.use_hpc = use_hpc
+        self.max_cur_overlaps = max_cur_overlaps
+        # groups with at most this many matches chain on the host
+        # (threaded native full-window DP, bit-identical to the device
+        # DP's bounded window because host_dp_max <= lookback); wider
+        # groups run the device DP.  See _finish_from_matches.
+        self.host_dp_max = min(1024, _LOOKBACK)
+        # mapping mode keeps every chain anchor (needed for window
+        # partitioning); assembly thins to >k spacing like the
+        # reference's kept-alignment trace
+        self.thin_anchors = thin_anchors
+        self._target_lengths = target_store.lengths
+        # divergence stats windows (reference: overlap.cpp:210-211)
+        self.div_stats: List[float] = []
+
+    # ------------------------------------------------------------------
+
+    def get_overlaps(self, query_store: SequenceStore, sid: int,
+                     force_local: bool = False,
+                     max_overlaps: int = 0) -> List[Overlap]:
+        """All overlaps of one query strand (reference:
+        overlap.cpp:99-508 getSeqOverlaps)."""
+        return self.get_overlaps_batch(query_store, [sid], force_local,
+                                       max_overlaps)[sid]
+
+    def get_overlaps_batch(self, query_store: SequenceStore,
+                           sids: Sequence[int], force_local: bool = False,
+                           max_overlaps: int = 0
+                           ) -> Dict[int, List[Overlap]]:
+        """Overlaps for a batch of query strands: one k-mer extraction +
+        index lookup pass and one chaining-DP bucket set for the whole
+        batch (cross-read batching keeps the device busy; the reference
+        parallelizes the same loop over threads,
+        reference: overlap.cpp:630-668)."""
+        symmetric = query_store is self.targets
+        from flye_tpu_torch import native
+        return self._batch_fast(native.get(), query_store, list(sids),
+                                force_local, max_overlaps, symmetric)
+
+    # ------------------------------------------------------------------
+
+    def _batch_fast(self, mod, query_store, sids, force_local,
+                    max_overlaps, symmetric):
+        """Native-assisted batch path: index probe, posting expansion,
+        group segmentation / survival filters, small-group chain DP,
+        and the backtrack + overlap tests + anchor thinning + divergence
+        all run in C++ threads (native probe_stream / collect_matches /
+        chain_group_prep / chain_dp_host / finish_overlaps); only wide
+        groups' DP rides the device (reference analog:
+        src/sequence/overlap.cpp:99-427)."""
+        nq = len(sids)
+        if nq == 0:
+            return {}
+        streams = self._match_streams(mod, query_store, sids, symmetric)
+        return self._finish_from_matches(mod, query_store, sids,
+                                         streams, force_local,
+                                         max_overlaps, symmetric)
+
+    def _match_streams(self, mod, query_store, sids, symmetric):
+        """Probe + posting gather for a batch of query strands; returns
+        the per-query match streams
+        (qpos, extid, extpos, qbounds, filt, foff) — everything the
+        chain/finish half needs."""
+        nq = len(sids)
+        lengths = [query_store.length(s) for s in sids]
+        with _phase("probe"):
+            probe_res = self.index.probe_stream_host(query_store, sids)
+        g_hit, row_hit, fwd_hit, g_rep, starts, _ = probe_res
+        # per-query filtered (repetitive-kmer) positions: g_rep is
+        # ascending in stream order, so per-query slices stay sorted
+        rep_qi = np.searchsorted(starts, g_rep, side="right") - 1
+        filt = np.ascontiguousarray(
+            (g_rep - starts[rep_qi]), dtype=np.int64)
+        foff = np.searchsorted(rep_qi, np.arange(nq + 1)).astype(
+            np.int64)
+        tlens = np.ascontiguousarray(self._target_lengths,
+                                     dtype=np.int64)
+        with _phase("gather"):
+            qpos_b, extid_b, extpos_b, qb_b = mod.collect_matches(
+                np.ascontiguousarray(g_hit, dtype=np.int64),
+                np.ascontiguousarray(row_hit, dtype=np.int64),
+                np.ascontiguousarray(fwd_hit).view(np.uint8),
+                np.ascontiguousarray(self.index.counts,
+                                     dtype=np.int32),
+                np.ascontiguousarray(self.index.offsets,
+                                     dtype=np.int64),
+                np.ascontiguousarray(self.index.post_seq,
+                                     dtype=np.int32),
+                np.ascontiguousarray(self.index.post_pos,
+                                     dtype=np.int32),
+                np.ascontiguousarray(self.index.post_flip).view(
+                    np.uint8),
+                tlens, np.ascontiguousarray(starts, dtype=np.int64),
+                np.asarray(sids, dtype=np.int64),
+                len(g_hit), nq, int(self.k), int(symmetric))
+        return (np.frombuffer(qpos_b, dtype=np.int32),
+                np.frombuffer(extid_b, dtype=np.int64),
+                np.frombuffer(extpos_b, dtype=np.int32),
+                np.frombuffer(qb_b, dtype=np.int64),
+                filt, foff)
+
+    def _finish_from_matches(self, mod, query_store, sids, streams,
+                             force_local, max_overlaps, symmetric):
+        """Chain + extract + divergence from match streams (the second
+        half of the native batch path; see _match_streams)."""
+        nq = len(sids)
+        results: Dict[int, List[Overlap]] = {sid: [] for sid in sids}
+        lengths = [query_store.length(s) for s in sids]
+        query_meta = list(zip(sids, lengths))
+        curlens = np.asarray(lengths, dtype=np.int32)
+        tlens = np.ascontiguousarray(self._target_lengths,
+                                     dtype=np.int64)
+        qpos_m, extid_m, extpos_m, qb_m, filt, foff = streams
+        qpos_b = np.ascontiguousarray(qpos_m, dtype=np.int32)
+        extid_b = np.ascontiguousarray(extid_m, dtype=np.int64)
+        extpos_b = np.ascontiguousarray(extpos_m, dtype=np.int32)
+        qb_b = np.ascontiguousarray(qb_m, dtype=np.int64)
+        filt = np.ascontiguousarray(filt, dtype=np.int64)
+        foff = np.ascontiguousarray(foff, dtype=np.int64)
+        min_surv = _MIN_KMER_SURVIVAL_RATE * self.min_overlap
+        with _phase("prep"):
+            (qi_b, eid_b, elen_b, stride_b, goff_b, gcur_b, gext_b) = \
+                mod.chain_group_prep(
+                    qpos_b, extid_b, extpos_b,
+                    qb_b, curlens, tlens, nq, float(min_surv),
+                    int(self.min_overlap), int(self.max_overhang),
+                    int(self.check_overhang and not force_local),
+                    int(_CHAIN_BUCKETS[-1]), int(max_overlaps))
+        g_qi = np.frombuffer(qi_b, dtype=np.int32)
+        g_eid = np.frombuffer(eid_b, dtype=np.int64)
+        g_elen = np.frombuffer(elen_b, dtype=np.int32)
+        g_stride = np.frombuffer(stride_b, dtype=np.int32)
+        goff = np.frombuffer(goff_b, dtype=np.int64)
+        gcur = np.frombuffer(gcur_b, dtype=np.int32)
+        gext = np.frombuffer(gext_b, dtype=np.int32)
+        G = len(g_qi)
+        if G == 0:
+            return results
+        glens = np.diff(goff)
+
+        g_cid = np.asarray(sids, dtype=np.int64)[g_qi]
+        g_clen = curlens[g_qi].astype(np.int32)
+
+        flags = (1 * (self.check_overhang and not force_local)
+                 | 2 * bool(force_local)
+                 | 4 * bool(symmetric)
+                 | 8 * bool(self.only_max_ext)
+                 | 16 * bool(self.thin_anchors))
+
+        # overlaps per group.  Small groups (the vast majority) run
+        # their full-window chain DP in threaded native code; groups
+        # wider than host_dp_max run the device DP.  For groups
+        # <= the device lookback window the two are bit-identical
+        # (full window == bounded window); host_dp_max must not exceed
+        # the engine lookback for that to hold.
+        per_group: List[Optional[tuple]] = [None] * G
+
+        def finish_rows(gids_arr, score_flat, parent_flat, scoff, W):
+            with _phase("finish"):
+                (row_of_b, coords_b, score_b, div_b, aoff_b,
+                 anchors_b) = mod.finish_overlaps(
+                    score_flat, parent_flat, scoff, len(gids_arr),
+                    int(W), gcur, gext,
+                    np.ascontiguousarray(goff[gids_arr]),
+                    np.ascontiguousarray(glens[gids_arr]),
+                    np.ascontiguousarray(g_eid[gids_arr]),
+                    np.ascontiguousarray(g_elen[gids_arr]),
+                    np.ascontiguousarray(g_stride[gids_arr]),
+                    np.ascontiguousarray(g_qi[gids_arr]),
+                    np.ascontiguousarray(g_cid[gids_arr]),
+                    np.ascontiguousarray(g_clen[gids_arr]),
+                    filt, foff, int(self.k), int(self.min_overlap),
+                    int(self.max_overhang), int(flags),
+                    float(self.index.sample_rate))
+            row_of = np.frombuffer(row_of_b, dtype=np.int32)
+            coords = np.frombuffer(coords_b, dtype=np.int32) \
+                .reshape(-1, 4)
+            vscore = np.frombuffer(score_b, dtype=np.int64)
+            vdiv = np.frombuffer(div_b, dtype=np.float64)
+            aoff = np.frombuffer(aoff_b, dtype=np.int64)
+            # int32 anchors: at 50x coverage the anchor traces are
+            # the cache's dominant per-overlap memory
+            anchors = np.frombuffer(anchors_b, dtype=np.int32) \
+                .reshape(-1, 2)
+            # split per row (row_of ascending)
+            starts_r = np.searchsorted(row_of,
+                                       np.arange(len(gids_arr) + 1))
+            for r, gi in enumerate(gids_arr):
+                s, e = starts_r[r], starts_r[r + 1]
+                if s < e:
+                    per_group[gi] = (coords[s:e], vscore[s:e],
+                                     vdiv[s:e],
+                                     [anchors[aoff[v]:aoff[v + 1]]
+                                      for v in range(s, e)])
+
+        host_gids = np.flatnonzero(glens <= self.host_dp_max)
+        dev_gids = np.flatnonzero(glens > self.host_dp_max)
+        if len(host_gids):
+            with _phase("dp_host"):
+                scoff_b, hs_b, hp_b = mod.chain_dp_host(
+                    gcur, gext, np.ascontiguousarray(goff[host_gids]),
+                    np.ascontiguousarray(glens[host_gids]),
+                    len(host_gids), int(self.k), int(self.max_jump))
+            # scoff_b has n+1 entries (prefix sums); the finisher only
+            # reads the first n
+            finish_rows(host_gids, hs_b, hp_b, scoff_b,
+                        max(int(self.host_dp_max), 1))
+        for gids, W, score_mat, parent_mat in self._run_chain_dp_buckets(
+                goff, glens, gcur, gext, dev_gids):
+            gids_arr = np.asarray(gids, dtype=np.int64)
+            nrows = len(gids)
+            scoff = (np.arange(nrows, dtype=np.int64) * W)
+            finish_rows(gids_arr,
+                        np.ascontiguousarray(score_mat),
+                        np.ascontiguousarray(parent_mat),
+                        scoff, int(W))
+
+        # assemble Overlap objects in original group order (determinism
+        # + the max_overlaps economy both depend on this order)
+        div_windows: Dict[int, Dict[int, Overlap]] = {}
+        seg_batcher = SegmentBatcher() if self.nucl_alignment else None
+        pending = []
+        for gi in range(G):
+            entry = per_group[gi]
+            if entry is None:
+                continue
+            qi = int(g_qi[gi])
+            sid, cur_len = query_meta[qi]
+            detected = results[sid]
+            if max_overlaps and len(detected) >= max_overlaps:
+                continue
+            coords, vscore, vdiv, anchor_list = entry
+            eid = int(g_eid[gi])
+            elen = int(g_elen[gi])
+            for v in range(len(vscore)):
+                ov = Overlap(sid, eid, int(coords[v, 0]),
+                             int(coords[v, 1]), cur_len,
+                             int(coords[v, 2]), int(coords[v, 3]), elen,
+                             score=int(vscore[v]),
+                             divergence=float(vdiv[v]))
+                ov.kmer_matches = anchor_list[v]
+                if self.nucl_alignment:
+                    cur_codes = query_store.get(sid)
+                    ext_codes = self.targets.get(ov.ext_id)
+                    finish = anchored_divergence(
+                        cur_codes, ext_codes, self._anchors_for(ov),
+                        self.k, use_hpc=self.use_hpc,
+                        batcher=seg_batcher)
+                    pending.append((sid, ov, finish))
+                else:
+                    self._keep_or_trim(ov, None, detected,
+                                       div_windows.setdefault(sid, {}))
+
+        if pending:
+            dists = seg_batcher.run()
+            for sid, ov, finish in pending:
+                div, per_seg, spans = finish(dists)
+                ov.divergence = div
+                self._keep_or_trim(ov, (per_seg, spans), results[sid],
+                                   div_windows.setdefault(sid, {}))
+
+        for sid_windows in div_windows.values():
+            for ov in sid_windows.values():
+                self.div_stats.append(ov.divergence)
+        return results
+
+    def _run_chain_dp_buckets(self, goff, glens, gcur, gext,
+                              gids_subset=None):
+        """Bucketed device chain DP over array-form groups; yields
+        (gids, W, score_mat, parent_mat) per bucket batch."""
+        by_bucket: Dict[int, List[int]] = {}
+        gi_iter = (enumerate(glens) if gids_subset is None
+                   else ((int(gi), glens[gi]) for gi in gids_subset))
+        for gi, m in gi_iter:
+            bucket = next((b for b in _CHAIN_BUCKETS if m <= b),
+                          _CHAIN_BUCKETS[-1])
+            by_bucket.setdefault(bucket, []).append(gi)
+        if not by_bucket:
+            return
+        t_buckets = (8, 32, 128, 512, 2048)
+        # all buckets come back in one flattened fetch
+        # (ops/chain.chain_dp_multi)
+        from flye_tpu_torch.parallel.runtime import get_runtime
+        bucket_specs = []
+        with _phase("dp"), _DEVICE_LOCK:
+            for bucket in sorted(by_bucket):
+                gids = by_bucket[bucket]
+                T = next((t for t in t_buckets if len(gids) <= t),
+                         len(gids))
+                cur = np.zeros((T, bucket), dtype=np.int32)
+                ext = np.zeros((T, bucket), dtype=np.int32)
+                nv = np.zeros(T, dtype=np.int32)
+                for r, gi in enumerate(gids):
+                    s = goff[gi]
+                    m = min(int(glens[gi]), bucket)
+                    cur[r, :m] = gcur[s:s + m]
+                    ext[r, :m] = gext[s:s + m]
+                    nv[r] = m
+                bucket_specs.append(
+                    (gids, bucket, T,
+                     get_runtime().shard_rows(cur, ext, nv)))
+            flat = chain_dp_multi(
+                [arrs for _, _, _, arrs in bucket_specs],
+                self.k, self.max_jump, _LOOKBACK).cpu().numpy()
+        off = 0
+        for gids, bucket, T, _ in bucket_specs:
+            n = T * bucket
+            score = flat[off:off + n].reshape(T, bucket)
+            off += n
+            parent = flat[off:off + n].reshape(T, bucket)
+            off += n
+            yield (gids, bucket, score[:len(gids)], parent[:len(gids)])
+
+    def _anchors_for(self, ov: Overlap) -> np.ndarray:
+        km = ov.kmer_matches
+        anchors = [(ov.cur_begin, ov.ext_begin)]
+        for c, e in km:
+            if ov.cur_begin < c < ov.cur_end and ov.ext_begin < e < ov.ext_end:
+                if c > anchors[-1][0] and e > anchors[-1][1]:
+                    anchors.append((int(c), int(e)))
+        anchors.append((ov.cur_end, ov.ext_end))
+        return np.asarray(anchors)
+
+    def _keep_or_trim(self, ov: Overlap, seg_info, detected, div_windows):
+        stat_wnd = 10000
+        if ov.divergence < self.max_divergence:
+            detected.append(ov)
+        elif self.partition_bad_mappings and seg_info is not None:
+            detected.extend(self._trim_bad_mapping(ov, *seg_info))
+        w = ov.cur_begin // stat_wnd
+        prev = div_windows.get(w)
+        if prev is None or ov.cur_range > prev.cur_range:
+            div_windows[w] = ov
+
+    def _trim_bad_mapping(self, ov: Overlap, per_seg: np.ndarray,
+                          spans: np.ndarray) -> List[Overlap]:
+        """Find sub-intervals of a too-divergent overlap that individually
+        pass the divergence threshold (behavioral equivalent of
+        checkIdyAndTrim, reference: src/sequence/alignment.cpp:306-430,
+        reformulated over anchor segments instead of CIGAR windows)."""
+        km = self._anchors_for(ov)
+        n_seg = len(per_seg)
+        if n_seg == 0:
+            return []
+        out = []
+        i = 0
+        thr = self.max_divergence
+        while i < n_seg:
+            # greedy: grow [i, j) while the running divergence stays small
+            edits = 0
+            cspan = 0
+            espan = 0
+            j = i
+            best_j = i
+            while j < n_seg:
+                e2 = edits + per_seg[j]
+                c2 = cspan + spans[j][0]
+                x2 = espan + spans[j][1]
+                if e2 / max(1, max(c2, x2)) <= thr:
+                    edits, cspan, espan = e2, c2, x2
+                    j += 1
+                    best_j = j
+                else:
+                    break
+            if best_j > i and min(cspan, espan) >= self.min_overlap:
+                sub = Overlap(ov.cur_id, ov.ext_id,
+                              int(km[i][0]), int(km[best_j][0]), ov.cur_len,
+                              int(km[i][1]), int(km[best_j][1]), ov.ext_len,
+                              score=ov.score,
+                              divergence=edits / max(1, max(cspan, espan)))
+                sub.kmer_matches = km[i:best_j + 1]
+                out.append(sub)
+            i = max(best_j, i + 1)
+        return out
+
+
+class OverlapStore:
+    """Lazy per-read overlap cache with symmetrization and dedup filtering
+    (reference: OverlapContainer, src/sequence/overlap.cpp:528-741).
+
+    packed=True stores the cache in the columnar arena
+    (overlap/packed.py, ~3-4x less RSS than Overlap-object lists) and
+    materializes objects on access through a small LRU; use it for
+    read-only stores (the ava store: prefetch + lazy access).  Stores
+    that mutate their lists in place (ensure_transitivity /
+    filter_overlaps — the repeat driver's read-vs-disjointig store)
+    must keep packed=False."""
+
+    # materialized working set: the disjointig extender walks a local
+    # neighborhood of reads repeatedly; ~1k reads x ~60 overlaps of
+    # objects is ~25 MB — decode cost off the hot loop, RSS bounded
+    _LRU_SIZE = 1024
+
+    def __init__(self, engine: OverlapEngine, query_store: SequenceStore,
+                 packed: bool = False):
+        from collections import OrderedDict
+
+        from flye_tpu_torch.overlap.packed import PackedOverlaps
+        self.engine = engine
+        self.queries = query_store
+        self._cache: Dict[int, Tuple[List[Overlap], List[Overlap]]] = {}
+        self._packed: Optional[PackedOverlaps] = (
+            PackedOverlaps() if packed else None)
+        self._lru: "OrderedDict[int, List[Overlap]]" = OrderedDict()
+        self.mean_true_divergence: float = 0.5
+
+    def _cached_reads(self):
+        """All fwd ids present in either representation."""
+        if self._packed is None:
+            return list(self._cache.keys())
+        seen = set(self._cache.keys())
+        out = list(self._cache.keys())
+        out.extend(r for r in self._packed.reads() if r not in seen)
+        return out
+
+    def _materialize(self, sid: int) -> List[Overlap]:
+        """Packed-store access with an LRU of materialized lists."""
+        lst = self._lru.get(sid)
+        if lst is not None:
+            self._lru.move_to_end(sid)
+            return lst
+        fwd_id = sid & ~1
+        fwd = self._packed.get(fwd_id)
+        lst = fwd if sid % 2 == 0 else [o.complement() for o in fwd]
+        self._lru[sid] = lst
+        if len(self._lru) > self._LRU_SIZE:
+            self._lru.popitem(last=False)
+        return lst
+
+    def quick_overlaps(self, sid: int, max_overlaps: int = 0,
+                       force_local: bool = False) -> List[Overlap]:
+        return self.engine.get_overlaps(self.queries, sid,
+                                        force_local=force_local,
+                                        max_overlaps=max_overlaps)
+
+    def lazy_overlaps(self, sid: int) -> List[Overlap]:
+        fwd_id = sid & ~1
+        entry = self._cache.get(fwd_id)
+        if entry is None:
+            if self._packed is not None and fwd_id in self._packed:
+                return self._materialize(sid)
+            ovlps = self.engine.get_overlaps(
+                self.queries, fwd_id,
+                max_overlaps=self.engine.max_cur_overlaps)
+            if self._packed is not None:
+                self._packed.add(fwd_id, ovlps)
+                return self._materialize(sid)
+            rev = [o.complement() for o in ovlps]
+            entry = (ovlps, rev)
+            self._cache[fwd_id] = entry
+        return entry[0] if sid % 2 == 0 else entry[1]
+
+    def prefetch(self, sids, batch_rows: int = 1024,
+                 max_batch_bases: int = 8 << 20,
+                 progress_every: int = 0) -> None:
+        """Batch-fill the overlap cache (cross-read device batching).
+
+        Batches go through a 2-deep thread pipeline: while one batch
+        waits on the device, the other runs its native host prep/finish
+        (GIL released in C++) —
+        the two-core analog of the reference's thread pool over the
+        same loop (reference: overlap.cpp:630-668).  Per-batch results
+        are independent, so the cache contents are identical to
+        sequential order."""
+        todo = []
+        seen = set()
+        for sid in sids:
+            fwd = sid & ~1
+            if (fwd not in self._cache and fwd not in seen
+                    and (self._packed is None
+                         or fwd not in self._packed)):
+                seen.add(fwd)
+                todo.append(fwd)
+        # group by similar length for padding efficiency
+        todo.sort(key=lambda s: self.queries.length(s))
+        groups = []
+        i = 0
+        while i < len(todo):
+            group = [todo[i]]
+            bases = self.queries.length(todo[i])
+            i += 1
+            while (i < len(todo) and len(group) < batch_rows and
+                   bases + self.queries.length(todo[i]) <
+                   max_batch_bases):
+                group.append(todo[i])
+                bases += self.queries.length(todo[i])
+                i += 1
+            groups.append(group)
+
+        from concurrent.futures import ThreadPoolExecutor
+        done = 0
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            futs = []
+            gi = 0
+            while gi < len(groups) or futs:
+                while gi < len(groups) and len(futs) < 2:
+                    futs.append((groups[gi], ex.submit(
+                        self.engine.get_overlaps_batch, self.queries,
+                        groups[gi],
+                        max_overlaps=self.engine.max_cur_overlaps)))
+                    gi += 1
+                group, fut = futs.pop(0)
+                res = fut.result()
+                for sid, ovlps in res.items():
+                    if self._packed is not None:
+                        self._packed.add(sid, ovlps)
+                    else:
+                        self._cache[sid] = (
+                            ovlps, [o.complement() for o in ovlps])
+                done += len(group)
+                if (progress_every and done // progress_every !=
+                        (done - len(group)) // progress_every):
+                    logger.info("overlaps: %d/%d reads", done,
+                                len(todo))
+
+    def overlaps(self, sid: int) -> List[Overlap]:
+        return self.lazy_overlaps(sid)
+
+    def _unsafe(self, sid: int) -> List[Overlap]:
+        fwd_id = sid & ~1
+        if fwd_id not in self._cache:
+            self._cache[fwd_id] = ([], [])
+        entry = self._cache[fwd_id]
+        return entry[0] if sid % 2 == 0 else entry[1]
+
+    def find_all_overlaps(self, progress_every: int = 0) -> None:
+        """All-vs-all (reference: overlap.cpp:630-668)."""
+        self.prefetch(self.queries.ids(),
+                      progress_every=progress_every)
+        self.ensure_transitivity(only_max_ext=False)
+        n = sum(len(v[0]) * 2 for v in self._cache.values())
+        logger.debug("Found %d overlaps", n)
+        self.filter_overlaps()
+        n = sum(len(v[0]) * 2 for v in self._cache.values())
+        logger.debug("Left %d overlaps after filtering", n)
+
+    def ensure_transitivity(self, only_max_ext: bool) -> None:
+        """Make the overlap relation symmetric
+        (reference: overlap.cpp:576-627)."""
+        assert self._packed is None, \
+            "transitivity mutates lists in place; use packed=False"
+        all_ids = []
+        for fwd_id in list(self._cache.keys()):
+            all_ids.extend([fwd_id, fwd_id + 1])
+        to_add: Dict[int, List[Overlap]] = {}
+        # per-sid {ext_id: index} maps make each reverse lookup O(1)
+        # instead of a linear scan of the ext list (the scans dominated
+        # the host side of find_all_overlaps at high coverage)
+        if only_max_ext:
+            ext_pos: Dict[int, Dict[int, int]] = {}
+            for sid in all_ids:
+                d: Dict[int, int] = {}
+                for i, ov in enumerate(self._unsafe(sid)):
+                    d.setdefault(ov.ext_id, i)  # first entry wins
+                ext_pos[sid] = d
+        for sid in all_ids:
+            for ov in self._unsafe(sid):
+                if only_max_ext:
+                    ext_list = self._unsafe(ov.ext_id)
+                    i = ext_pos.get(ov.ext_id, {}).get(ov.cur_id)
+                    if i is not None:
+                        if ov.score > ext_list[i].score:
+                            ext_list[i] = ov.reverse()
+                    else:
+                        to_add.setdefault(ov.ext_id, []).append(ov.reverse())
+                else:
+                    to_add.setdefault(ov.ext_id, []).append(ov.reverse())
+        for sid, ovlps in to_add.items():
+            self._unsafe(sid).extend(ovlps)
+
+    def filter_overlaps(self) -> None:
+        """Cluster near-duplicate overlaps per read and keep the best
+        (reference: overlap.cpp:681-741).
+
+        Pairwise comparisons run as NumPy broadcasts per (read, ext)
+        group instead of Python object loops — the O(n^2)-pair
+        attribute-access loop dominated host time at high coverage."""
+        max_ends_diff = self.engine.k
+        for sid in [i for f in self._cache for i in (f, f + 1)]:
+            ovlps = self._unsafe(sid)
+            n = len(ovlps)
+            if not n:
+                continue
+            ext = np.fromiter((o.ext_id for o in ovlps), np.int64, n)
+            cb = np.fromiter((o.cur_begin for o in ovlps), np.int64, n)
+            ce = np.fromiter((o.cur_end for o in ovlps), np.int64, n)
+            eb = np.fromiter((o.ext_begin for o in ovlps), np.int64, n)
+            ee = np.fromiter((o.ext_end for o in ovlps), np.int64, n)
+            order = np.argsort(ext, kind="stable")
+            bounds = np.flatnonzero(np.concatenate(
+                [[True], ext[order][1:] != ext[order][:-1]]))
+            bounds = np.append(bounds, n)
+            ds = DisjointSet()
+            for i in range(n):
+                ds.add(i)
+            for s, e in zip(bounds[:-1], bounds[1:]):
+                if e - s < 2:
+                    continue
+                g = order[s:e]
+                # o1 = the earlier-listed overlap of the pair (matches
+                # the original loop's o1/o2 orientation)
+                ii, jj = np.meshgrid(g, g, indexing="ij")
+                up = ii < jj
+                cur_int = (np.minimum(ce[ii], ce[jj])
+                           - np.maximum(cb[ii], cb[jj]))
+                ext_int = (np.minimum(ee[ii], ee[jj])
+                           - np.maximum(eb[ii], eb[jj]))
+                cur_diff = (ce[ii] - cb[ii]) - cur_int
+                ext_diff = (ee[ii] - eb[ii]) - ext_int
+                close = (up & (cur_diff < max_ends_diff)
+                         & (ext_diff < max_ends_diff))
+                for a, b in zip(ii[close], jj[close]):
+                    ds.union(int(a), int(b))
+            new = []
+            for members in ds.groups().values():
+                best = max(members, key=lambda i: ovlps[i].score)
+                new.append(ovlps[best])
+            new.sort(key=lambda o: o.cur_begin)
+            fwd_id = sid & ~1
+            entry = self._cache[fwd_id]
+            if sid % 2 == 0:
+                self._cache[fwd_id] = (new, entry[1])
+            else:
+                self._cache[fwd_id] = (entry[0], new)
+
+    def estimate_overlaper_parameters(self, max_seqs: int = 1000,
+                                      seed: int = 42) -> None:
+        """Median divergence of each sampled read's largest overlap
+        (reference: overlap.cpp:744-817)."""
+        rng = np.random.default_rng(seed)
+        ids = self.queries.ids()
+        if not ids:
+            self.mean_true_divergence = 0.5
+            return
+        # sample distinct ids so the effective sample size is exactly
+        # min(max_seqs, n) (reference: overlap.cpp:752-760 samples
+        # without replacement via shuffled id list)
+        n_sample = min(max_seqs, len(ids))
+        sample = [ids[i] for i in
+                  rng.choice(len(ids), size=n_sample, replace=False)]
+        sample.sort(key=lambda s: self.queries.length(s))
+        divs = []
+        for lo in range(0, len(sample), 256):
+            res = self.engine.get_overlaps_batch(
+                self.queries, sample[lo:lo + 256])
+            for ovlps in res.values():
+                if ovlps:
+                    best = max(ovlps, key=lambda o: o.cur_range)
+                    divs.append(best.divergence)
+        if divs:
+            self.mean_true_divergence = float(np.median(divs))
+        else:
+            logger.warning("No overlaps found - unable to estimate "
+                           "parameters")
+            self.mean_true_divergence = 0.5
+        logger.debug("Initial divergence estimate: %.4f",
+                     self.mean_true_divergence)
+
+    def log_divergence_stats(self) -> None:
+        """Median + ASCII histogram of observed overlap divergences
+        (behavioral equivalent of overlapDivergenceStats,
+        reference: src/sequence/overlap.cpp:829-896): 100 columns over
+        [0, 0.5), 20 rows, current max-divergence cutoff marked '|'."""
+        divs = np.asarray(self.engine.div_stats, dtype=np.float64)
+        if not len(divs):
+            return
+        logger.info("Median overlap divergence: %.6f",
+                    float(np.median(divs)))
+        cols, rows, dmax = 100, 20, 0.5
+        hist, _ = np.histogram(divs, bins=cols, range=(0.0, dmax))
+        peak = max(1, int(hist.max()))
+        cutoff = int(self.engine.max_divergence / dmax * cols)
+        lines = []
+        for h in range(rows - 1, -1, -1):
+            row = [("*" if hist[i] / peak > h / rows else
+                    "|" if i == cutoff else " ") for i in range(cols)]
+            lines.append("    |" + "".join(row))
+        lines.append("    " + "-" * cols)
+        footer = [" "] * cols
+        for i in range(10):
+            for j, ch in enumerate(f"{i * 5}%"):
+                footer[i * cols // 10 + j] = ch
+        lines.append("    " + "".join(footer))
+        q25, q50, q75 = np.percentile(divs, [25, 50, 75])
+        logger.debug("Sequence divergence distribution:\n%s\n"
+                     "    Q25 = %.2f, Q50 = %.2f, Q75 = %.2f",
+                     "\n".join(lines), q25, q50, q75)
+
+    def set_divergence_threshold(self, threshold: float,
+                                 relative: bool) -> None:
+        self.engine.max_divergence = (
+            (self.mean_true_divergence if relative else 0.0) + threshold)
+        logger.debug("Max divergence threshold set to %.4f",
+                     self.engine.max_divergence)
+
+    def _fwd_list(self, fwd_id: int) -> List[Overlap]:
+        entry = self._cache.get(fwd_id)
+        if entry is not None:
+            return entry[0]
+        return self._packed.get(fwd_id)
+
+    def all_overlaps(self) -> List[Overlap]:
+        out = []
+        for fwd_id in self._cached_reads():
+            f = self._fwd_list(fwd_id)
+            out.extend(f)
+            out.extend(o.complement() for o in f)
+        return out

@@ -1,0 +1,129 @@
+"""The port's CUDA kernels against their plain versions.
+
+This file imports no JAX, so it also runs on a machine with a GPU and
+no JAX (the tests' conftest imports JAX; skip it there):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Tests marked `gpu` skip without a CUDA device.  K1 must match bit for
+bit; K2+K3 rows are compared exactly, raw scores within 1e-3 (the
+polisher's acceptance threshold) with the same finiteness, chars
+exactly."""
+
+import numpy as np
+import pytest
+import torch
+
+import flye_tpu_torch.ops.polish as TP
+from flye_tpu_torch.ops import _cuda
+from flye_tpu_torch.ops.chain import _chain_dp_scan, chain_dp
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def make_matches(T, M, rng, noise=60):
+    cur = np.sort(rng.integers(0, 40 * M, size=(T, M)), axis=1)
+    ext = cur + 300 + rng.integers(-noise, noise, size=(T, M))
+    nvalid = rng.integers(1, M + 1, size=T)
+    return (cur.astype(np.int32), ext.astype(np.int32),
+            nvalid.astype(np.int32))
+
+
+def polish_inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    B, Cb, R, S = shape
+    cand = rng.integers(0, 4, (B, Cb)).astype(np.uint8)
+    clen = rng.integers(Cb // 2, Cb - Cb // 8, B).astype(np.int32)
+    branches = rng.integers(0, 4, (B, R, S)).astype(np.uint8)
+    blen = rng.integers(S // 2, S + 1, (B, R)).astype(np.int32)
+    bmask = rng.random((B, R)) < 0.8
+    bmask[:, 0] = True
+    subs = np.log(rng.random((5, 5)) * 0.5 + 0.01).astype(np.float32)
+    return cand, clen, branches, blen, bmask, subs
+
+
+def test_require_rejects_bad_inputs():
+    t = torch.zeros((2, 3), dtype=torch.int32)
+    cpu = torch.device("cpu")
+    _cuda.require(t, "t", torch.int32, (2, 3), cpu)
+    with pytest.raises(ValueError, match="dtype"):
+        _cuda.require(t, "t", torch.int64, (2, 3), cpu)
+    with pytest.raises(ValueError, match="shape"):
+        _cuda.require(t, "t", torch.int32, (3, 2), cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.require(t.T, "t", torch.int32, (3, 2), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,M,L", [(32, 4096, 1024), (8, 300, 1024),
+                                   (5, 200, 48), (3, 64, 64)])
+def test_chain_kernel_matches_plain(cuda_device, T, M, L):
+    rng = np.random.default_rng(T + M)
+    cur, ext, nvalid = make_matches(T, M, rng)
+    nvalid[0] = 0
+    nvalid[1] = 1
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (cur, ext, nvalid)]
+    before = _cuda.LAUNCHES["chain_dp"]
+    s_k, p_k = chain_dp(*args, 15, 1500, L)
+    assert _cuda.LAUNCHES["chain_dp"] == before + 1
+    s_p, p_p = _chain_dp_scan(*args, 15, 1500, min(L, M))
+    assert torch.equal(s_k, s_p)
+    assert torch.equal(p_k, p_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 64, 8, 96), (16, 160, 8, 240),
+                                   (8, 48, 3, 63), (4, 32, 8, 31)])
+def test_polish_kernels_match_plain(cuda_device, shape):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in polish_inputs(sum(shape), shape)]
+    cand, clen, branches, blen, bmask, subs = args
+    tables = TP._tables(cand, clen, branches, blen, subs)
+    bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs, tables)
+    Bm = TP._backward_rows(cand, clen, branches, blen, subs, tables)
+    assert torch.equal(bt.transpose(0, 1), Bm)
+    raw_k = TP.score_edits_raw(*args)
+    raw_k2 = TP.score_edits_raw(*args)
+    assert all(torch.equal(a, b) for a, b in zip(raw_k, raw_k2))
+    raw_p = TP._score_edits_raw(*args)
+    for a, b in zip(raw_k, raw_p):
+        fa = a > -1e29
+        assert torch.equal(fa, b > -1e29)
+        assert float((a - b)[fa].abs().max()) < 1e-3
+    fk = TP._finish_scores(cand, clen, *raw_k, groups=1)
+    fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
+    assert torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])
+
+
+@pytest.mark.gpu
+def test_hill_climb_kernels_match_plain(cuda_device):
+    rng = np.random.default_rng(7)
+    B, C, Cb, S, R = 16, 30, 40, 60, 24
+    true = rng.integers(0, 4, (B, C)).astype(np.uint8)
+    cand = np.zeros((B, Cb), np.uint8)
+    cand[:, :C] = true
+    for i in range(B):
+        idx = rng.integers(0, C, 2)
+        cand[i, idx] = (cand[i, idx] + 1) % 4
+    branches = np.zeros((B, R, S), np.uint8)
+    branches[:, :, :C] = true[:, None, :]
+    blen = np.full((B, R), C, np.int32)
+    bmask = np.ones((B, R), bool)
+    subs = np.log(np.full((5, 5), 0.05, np.float32))
+    np.fill_diagonal(subs[:4, :4], np.log(0.8))
+    clen = np.full(B, C, np.int32)
+    args = (cand, clen, branches, blen, bmask, subs)
+    k = TP.polish_bubbles(*args, max_iters=2 * Cb, use_kernel=True,
+                          device=cuda_device)
+    p = TP.polish_bubbles(*args, max_iters=2 * Cb, use_kernel=False,
+                          device=cuda_device)
+    np.testing.assert_array_equal(k[0], p[0])
+    np.testing.assert_array_equal(k[1], p[1])
+    for i in range(B):
+        np.testing.assert_array_equal(k[0][i, :k[1][i]], true[i])
