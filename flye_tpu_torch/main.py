@@ -1,17 +1,18 @@
 """flye_tpu_torch command-line interface and stage pipeline.
 
 Port of `flye_tpu/main.py` (behavioral port of the reference CLI and
-Job framework, flye/main.py): the same parser, output layout and
-job-granular resume via params.json.  The stages ported so far are
-configure -> assembly -> consensus (reads in, `10-consensus/
-consensus.fasta` out); a run must stop there (`--stop-after consensus`,
-or an earlier stage).  The later stages (repeat, trestle, contigger,
-plasmids, polishing, finalize), `--polish-target`, `--profile` and
-`--shards` above 1 raise "not yet ported".
+Job framework, flye/main.py): the same parser, output layout
+(00-assembly ... 40-polishing + the final assembly files) and
+job-granular resume via params.json.  The default raw pipeline is
+ported: configure -> assembly -> consensus -> repeat -> contigger ->
+polishing -> finalize.  The optional stages Trestle (`--trestle`) and
+plasmid recovery (`--plasmids`), the standalone polisher
+(`--polish-target`), `--profile` and `--shards` above 1 are not yet
+ported and are refused up front.
 
 Usage:
     python -m flye_tpu_torch.main --pacbio-raw reads.fasta -o out_dir \
-        -g 1m --stop-after consensus --device cuda
+        -g 1m --device cuda
 """
 
 from __future__ import annotations
@@ -20,8 +21,11 @@ import argparse
 import json
 import logging
 import os
+import shutil
 import sys
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from flye_tpu_torch.config import Config, PIPELINE, setup_run_params
 from flye_tpu_torch.io.fasta import write_fasta
@@ -190,13 +194,216 @@ class JobConsensus(Job):
         write_fasta(consensus, self.out_files["consensus"])
 
 
-# the JAX package's stages after consensus, in pipeline order
-NOT_PORTED_STAGES = ("repeat", "trestle", "contigger", "plasmids",
-                     "polishing", "finalize")
+class JobRepeat(Job):
+    name = "repeat"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        d = ctx.subdir("20-repeat")
+        self.out_files["graph"] = os.path.join(d, "repeat_graph_dump")
+        self.out_files["alignment"] = os.path.join(
+            d, "read_alignment_dump")
+
+    def run(self):
+        from flye_tpu_torch.repeat.driver import analyse_repeats
+        reads = self.ctx.load_reads()
+        disjointigs = SequenceStore.from_file(
+            os.path.join(self.ctx.out_dir, "10-consensus",
+                         "consensus.fasta"))
+        graph, aligner, _ = analyse_repeats(
+            disjointigs, reads, self.ctx.cfg,
+            out_dir=self.ctx.subdir("20-repeat"),
+            min_overlap=self.ctx.min_overlap)
+        self.ctx.repeat_state = (graph, aligner)
+
+
+def _load_repeat_dumps(ctx):
+    """Reload (graph, aligner) from the repeat stage's dumps on resume
+    (the JAX package also prefers Trestle's updated graph dump, which
+    the port does not write yet)."""
+    from flye_tpu_torch.repeat.graph import RepeatGraph
+    from flye_tpu_torch.repeat.read_aligner import ReadAligner
+    reads = ctx.load_reads()
+    disjointigs = SequenceStore.from_file(
+        os.path.join(ctx.out_dir, "10-consensus", "consensus.fasta"))
+    d = os.path.join(ctx.out_dir, "20-repeat")
+    graph = RepeatGraph.load(disjointigs,
+                             os.path.join(d, "repeat_graph_dump"))
+    aligner = ReadAligner.load(
+        graph, reads, ctx.cfg, ctx.min_overlap,
+        os.path.join(d, "read_alignment_dump"))
+    return graph, aligner
+
+
+class JobContigger(Job):
+    name = "contigger"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        d = ctx.subdir("30-contigger")
+        self.out_files["contigs"] = os.path.join(d, "contigs.fasta")
+        self.out_files["stats"] = os.path.join(d, "contigs_stats.txt")
+        self.out_files["gfa"] = os.path.join(d, "graph_final.gfa")
+
+    def run(self):
+        from flye_tpu_torch.contigger import generate_contigs
+        state = getattr(self.ctx, "repeat_state", None)
+        if state is None:  # resume: reload from the repeat stage dumps
+            state = _load_repeat_dumps(self.ctx)
+        graph, aligner = state
+        contigs, links = generate_contigs(
+            graph, aligner, self.ctx.cfg,
+            out_dir=self.ctx.subdir("30-contigger"))
+        self.ctx.contigs = contigs
+        self.ctx.links = links
+
+    def load_state(self):
+        """Rebuild ctx.contigs/ctx.links from the stage's files."""
+        from flye_tpu_torch.contigger.extender import ContigInfo
+        store = SequenceStore.from_file(self.out_files["contigs"])
+        by_name = {store.name(i): store.get(i) for i in store.ids()}
+        contigs = []
+        with open(self.out_files["stats"]) as f:
+            next(f)  # header
+            for line in f:
+                (name, length, cov, circ, rep, mult, alt,
+                 path) = line.rstrip("\n").split("\t")
+                seq = by_name.get(name)
+                if seq is None:
+                    continue
+                contigs.append(ContigInfo(
+                    name=name, sequence=seq, length=int(length),
+                    coverage=int(cov), circular=circ == "Y",
+                    repetitive=rep == "Y", multiplicity=int(mult),
+                    alt_group=(-1 if alt == "*" else int(alt)),
+                    graph_path=path))
+        links = []
+        links_file = os.path.join(self.ctx.subdir("30-contigger"),
+                                  "scaffolds_links.txt")
+        if os.path.exists(links_file):
+            with open(links_file) as f:
+                for line in f:
+                    a, b = line.rstrip("\n").split("\t")
+                    links.append((a, b))
+        self.ctx.contigs = contigs
+        self.ctx.links = links
+
+
+class JobPolishing(Job):
+    name = "polishing"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        d = ctx.subdir("40-polishing")
+        self.out_files["polished"] = os.path.join(
+            d, "filtered_contigs.fasta")
+        self.out_files["stats"] = os.path.join(d, "polished_stats.txt")
+        self.out_files["polished_gfa"] = os.path.join(
+            d, "polished_edges.gfa")
+
+    def run(self):
+        from flye_tpu_torch.polishing.polisher import polish
+        reads = self.ctx.load_reads()
+        contigs_store = SequenceStore.from_file(
+            os.path.join(self.ctx.out_dir, "30-contigger",
+                         "contigs.fasta"))
+        pairs = [(contigs_store.name(i), contigs_store.get(i))
+                 for i in contigs_store.ids()]
+        mb = (self.ctx.cfg.polish_max_bubble
+              if "polish_max_bubble" in self.ctx.cfg else None)
+        polished, coverage = polish(
+            pairs, reads, self.ctx.platform,
+            num_iters=self.ctx.args.iterations,
+            return_coverage=True, max_bubble=mb, trim_ends=True)
+
+        # final coverage filtering (reference: polish.py:210-261)
+        covs = [coverage.get(n, 0) for n, _ in polished]
+        med = np.median([c for c in covs if c > 0]) if any(covs) else 0
+        min_cov = max(med / PIPELINE["relative_minimum_coverage"],
+                      PIPELINE["hard_minimum_coverage"])
+        kept = [(n, s) for (n, s), c in zip(polished, covs)
+                if len(s) and c >= min_cov]
+        if not kept:  # never drop the whole assembly
+            kept = [(n, s) for n, s in polished if len(s)]
+        write_fasta(kept, self.out_files["polished"])
+        # splice polished sequence into the final graph's edges
+        # (reference: flye/main.py:368 -> polish.py:142-207)
+        from flye_tpu_torch.polishing.polished_edges import (
+            generate_polished_gfa)
+        cdir = os.path.join(self.ctx.out_dir, "30-contigger")
+        n_upd = generate_polished_gfa(
+            os.path.join(cdir, "graph_final.fasta"),
+            os.path.join(cdir, "graph_final.gfa"),
+            kept, self.out_files["polished_gfa"])
+        logger.info("Polished %d graph edge sequences", n_upd)
+        with open(self.out_files["stats"], "w") as f:
+            f.write("#seq_name\tlength\tcoverage\n")
+            for n, s in kept:
+                f.write(f"{n}\t{len(s)}\t{int(coverage.get(n, 0))}\n")
+        # update in-memory contigs with polished sequences
+        by_name = dict(kept)
+        for c in getattr(self.ctx, "contigs", []):
+            if c.name in by_name:
+                c.sequence = by_name[c.name]
+                c.length = len(c.sequence)
+
+    def load_state(self):
+        """Reapply polished sequences to ctx.contigs from files."""
+        store = SequenceStore.from_file(self.out_files["polished"])
+        by_name = {store.name(i): store.get(i) for i in store.ids()}
+        for c in getattr(self.ctx, "contigs", []):
+            if c.name in by_name:
+                c.sequence = by_name[c.name]
+                c.length = len(c.sequence)
+
+
+class JobFinalize(Job):
+    name = "finalize"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        self.out_files["fasta"] = os.path.join(ctx.out_dir,
+                                               "assembly.fasta")
+        self.out_files["info"] = os.path.join(ctx.out_dir,
+                                              "assembly_info.txt")
+
+    def run(self):
+        from flye_tpu_torch.pipeline.scaffolder import (build_scaffolds,
+                                                        write_assembly)
+        contigs = getattr(self.ctx, "contigs", [])
+        links = getattr(self.ctx, "links", [])
+        if not contigs:
+            raise PipelineException("No contigs to finalize")
+        scaffolds = build_scaffolds(contigs, links)
+        write_assembly(contigs, scaffolds, self.out_files["fasta"],
+                       self.out_files["info"])
+        # final graph: polished-edge GFA when polishing ran
+        # (reference: flye/main.py:269 copies polished_edges.gfa)
+        polished_gfa = os.path.join(self.ctx.out_dir, "40-polishing",
+                                    "polished_edges.gfa")
+        raw_gfa = os.path.join(self.ctx.out_dir, "30-contigger",
+                               "graph_final.gfa")
+        gfa = polished_gfa if os.path.exists(polished_gfa) else raw_gfa
+        if os.path.exists(gfa):
+            shutil.copy(gfa, os.path.join(self.ctx.out_dir,
+                                          "assembly_graph.gfa"))
+        gv = os.path.join(self.ctx.out_dir, "30-contigger",
+                          "graph_final.gv")
+        if os.path.exists(gv):
+            shutil.copy(gv, os.path.join(self.ctx.out_dir,
+                                         "assembly_graph.gv"))
+
+
+# the JAX package's optional stages, refused up front (see main())
+NOT_PORTED_STAGES = ("trestle", "plasmids")
 
 
 def create_job_list(ctx: RunContext) -> List[Job]:
-    return [JobConfigure(ctx), JobAssembly(ctx), JobConsensus(ctx)]
+    """The JAX package's default job list (flye_tpu/main.py
+    create_job_list without the optional Trestle and plasmid stages)."""
+    return [JobConfigure(ctx), JobAssembly(ctx), JobConsensus(ctx),
+            JobRepeat(ctx), JobContigger(ctx), JobPolishing(ctx),
+            JobFinalize(ctx)]
 
 
 def run_pipeline(args) -> int:
@@ -205,11 +412,8 @@ def run_pipeline(args) -> int:
     ctx = RunContext(args)
     jobs = create_job_list(ctx)
     names = [j.name for j in jobs]
-    if args.stop_after not in names:
-        raise PipelineException(
-            f"stages after consensus ({', '.join(NOT_PORTED_STAGES)}) "
-            "are not yet ported to flye_tpu_torch: run with "
-            "--stop-after consensus (or an earlier stage)")
+    if args.stop_after is not None and args.stop_after not in names:
+        raise PipelineException(f"Unknown stage: {args.stop_after}")
     init_runtime(args.shards, args.device)
 
     start_from = 0
@@ -244,8 +448,10 @@ def run_pipeline(args) -> int:
         logger.info(">>> STAGE: %s", job.name)
         job.run()
         if args.stop_after == job.name:
-            break
-    logger.info("Stopped after stage '%s'", args.stop_after)
+            logger.info("Stopped after stage '%s'", job.name)
+            return 0
+    logger.info("Final assembly: %s",
+                os.path.join(ctx.out_dir, "assembly.fasta"))
     return 0
 
 
@@ -280,7 +486,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--polish-target", default=None, metavar="FASTA",
                         help="run the standalone polisher on this "
                              "sequence file instead of assembling "
-                             "(reference: flye --polish-target)")
+                             "(reference: flye --polish-target; not yet "
+                             "ported to flye_tpu_torch)")
     parser.add_argument("--hifi-error", type=float, default=None,
                         metavar="FLOAT",
                         help="expected HiFi error rate (e.g. 0.003); "
@@ -293,11 +500,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--trestle", action="store_true",
                         help="enable Trestle unbridged-repeat "
                              "resolution (reference: flye --trestle, "
-                             "opt-in since 2.8)")
+                             "opt-in since 2.8; not yet ported to "
+                             "flye_tpu_torch)")
     parser.add_argument("--no-trestle", action="store_true",
                         help=argparse.SUPPRESS)  # legacy opt-out
     parser.add_argument("--plasmids", action="store_true",
-                        help="recover short unassembled plasmids")
+                        help="recover short unassembled plasmids "
+                             "(not yet ported to flye_tpu_torch)")
     parser.add_argument("--keep-haplotypes", action="store_true")
     parser.add_argument("--nano-model", choices=["r94", "r7"],
                         default="r94",
@@ -343,9 +552,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     configure_logging(os.path.join(args.out_dir, "flye.log"),
                       debug=args.debug)
-    if args.polish_target or args.profile:
-        parser.error("--polish-target and --profile are not yet ported "
-                     "to flye_tpu_torch")
+    refused = [f"--{stage}" for stage in NOT_PORTED_STAGES
+               if getattr(args, stage)]
+    refused += [flag for flag, on in (
+        ("--polish-target", args.polish_target),
+        ("--profile", args.profile)) if on]
+    if refused:
+        logger.error("%s not yet ported to flye_tpu_torch",
+                     ", ".join(refused))
+        logger.error("Pipeline aborted")
+        return 1
     try:
         return run_pipeline(args)
     except PipelineException as e:

@@ -1,9 +1,9 @@
 """Native (C++) host helpers, built on first use with g++.
 
-The source is the JAX package's `flye_tpu/native/flye_native.cpp`, read
-by path (the port imports nothing from `flye_tpu`).  The module is
-compiled into the port's own build directory (`flye_tpu_torch/_build`,
-gitignored), never next to the JAX source.  The port has no
+The source, `flye_native.cpp` beside this file, is the port's own copy
+of the JAX package's native helpers (kept byte-equal to it by
+`tests/test_torch_repeat.py`).  The module is compiled into the port's
+build directory (`flye_tpu_torch/_build`, gitignored).  The port has no
 pure-Python fallback for these helpers: a failed build raises with the
 compiler's output.
 """
@@ -20,7 +20,7 @@ import threading
 logger = logging.getLogger("flye_tpu_torch")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "flye_tpu", "native",
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "flye_native.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "flye_native.so")

@@ -28,7 +28,7 @@ class ParallelContext:
     process_count = 1
     active = False   # no multi-device sharding in this port yet
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         self.device = torch.device(device)
 
     def shard_rows(self, *arrays):
@@ -61,11 +61,13 @@ def init_runtime(n_shards: Optional[int] = None,
 
 
 def get_runtime() -> ParallelContext:
-    """The active context; defaults to the CPU when the CLI didn't
-    initialize one (library use, unit tests)."""
+    """The active context.  When nothing was installed (library use) it
+    is the GPU, as `init_runtime(device="cuda")` gives, and it raises
+    when no GPU is visible; a caller that wants the CPU installs
+    `ParallelContext("cpu")` with `set_runtime` (the CPU tests do)."""
     global _runtime
     if _runtime is None:
-        _runtime = ParallelContext()
+        _runtime = init_runtime(device="cuda")
     return _runtime
 
 

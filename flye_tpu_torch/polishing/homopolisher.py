@@ -25,10 +25,9 @@ import numpy as np
 
 logger = logging.getLogger("flye_tpu_torch")
 
-# the run-length tables are the JAX package's data files, read by path
-_DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "flye_tpu", "polishing", "data")
+# the run-length tables: the port's own copies of the JAX package's
+# data files
+_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 _MAX_STATE = 20
 _MAX_OBS = 32
 _PLATFORM_FILES = {"pacbio": "hopo_pacbio.npz", "nano": "hopo_nano_r94.npz",

@@ -10,6 +10,14 @@ from flye_tpu.ops.chain import backtrack_chains as jax_backtrack
 from flye_tpu_torch.ops import _cuda
 from flye_tpu_torch.ops.chain import (backtrack_chains, chain_dp,
                                       chain_dp_multi)
+from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
+
+
+@pytest.fixture(autouse=True)
+def cpu_runtime():
+    set_runtime(ParallelContext("cpu"))
+    yield
+    set_runtime(None)
 
 
 def make_matches(T, M, rng, span=6000, noise=60):

@@ -5,18 +5,27 @@ no JAX (the tests' conftest imports JAX; skip it there):
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
-Tests marked `gpu` skip without a CUDA device.  K1 must match bit for
-bit; K2+K3 rows are compared exactly, raw scores within 1e-3 (the
-polisher's acceptance threshold) with the same finiteness, chars
+Tests marked `gpu` skip without a CUDA device.  K1 and K5 must match
+bit for bit; K2+K3 rows are compared exactly, raw scores within 1e-3
+(the polisher's acceptance threshold) with the same finiteness, chars
 exactly."""
 
 import numpy as np
 import pytest
 import torch
 
+import flye_tpu_torch.ops.align as TA
 import flye_tpu_torch.ops.polish as TP
 from flye_tpu_torch.ops import _cuda
 from flye_tpu_torch.ops.chain import _chain_dp_scan, chain_dp
+from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
+
+
+@pytest.fixture(autouse=True)
+def cpu_runtime():
+    set_runtime(ParallelContext("cpu"))
+    yield
+    set_runtime(None)
 
 
 @pytest.fixture
@@ -127,3 +136,77 @@ def test_hill_climb_kernels_match_plain(cuda_device):
     np.testing.assert_array_equal(k[1], p[1])
     for i in range(B):
         np.testing.assert_array_equal(k[0][i, :k[1][i]], true[i])
+
+
+def lev_inputs(B, S, seed):
+    """Random and related pairs with the edge rows first: alen 0, blen
+    0, both 0, both full, identical full-length strings."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 4, (B, S)).astype(np.uint8)
+    b = rng.integers(0, 4, (B, S)).astype(np.uint8)
+    half = B // 2
+    mut = rng.random((half, S)) < 0.1
+    b[:half] = np.where(mut, b[:half], a[:half])
+    al = rng.integers(0, S + 1, B).astype(np.int32)
+    bl = rng.integers(0, S + 1, B).astype(np.int32)
+    al[:5] = [0, S, 0, S, S]
+    bl[:5] = [S, 0, 0, S, S]
+    b[4] = a[4]
+    return a, al, b, bl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(4096, 16), (4096, 64), (1024, 64),
+                                 (256, 256), (64, 1024), (37, 100)])
+def test_levenshtein_kernel_matches_plain(cuda_device, B, S):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in lev_inputs(B, S, B + S)]
+    before = _cuda.LAUNCHES["levenshtein"]
+    d_k = TA.edit_distance_batch(*args)
+    d_k2 = TA.edit_distance_batch(*args)
+    assert _cuda.LAUNCHES["levenshtein"] == before + 2
+    d_p = TA._edit_distance_plain(*args)
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(d_k, d_k2)
+    assert d_k[:5].tolist() == [S, S, 0, int(d_p[3]), 0]
+
+
+def _kernel_unavailable(monkeypatch):
+    """Make every kernel library fail to build, and the plain loop fail
+    the test if the wrapper ever falls back to it."""
+    def no_lib(name):
+        raise RuntimeError(f"nvcc not found: cannot build {name}")
+
+    def no_plain(*args):
+        raise AssertionError("fell back to the plain version")
+    monkeypatch.setattr(_cuda, "lib", no_lib)
+    monkeypatch.setattr(TA, "_edit_distance_plain", no_plain)
+
+
+@pytest.mark.gpu
+def test_levenshtein_cuda_tensor_raises_without_kernel(cuda_device,
+                                                       monkeypatch):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in lev_inputs(16, 16, 1)]
+    _kernel_unavailable(monkeypatch)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        TA.edit_distance_batch(*args)
+
+
+def test_levenshtein_device_tensor_never_runs_plain(monkeypatch):
+    """Any tensor that is not on the CPU takes the kernel route and
+    raises when the kernel is unavailable (meta tensors stand in for a
+    device here)."""
+    meta = [torch.empty((8, 16), dtype=torch.uint8, device="meta"),
+            torch.empty(8, dtype=torch.int32, device="meta"),
+            torch.empty((8, 16), dtype=torch.uint8, device="meta"),
+            torch.empty(8, dtype=torch.int32, device="meta")]
+    _kernel_unavailable(monkeypatch)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        TA.edit_distance_batch(*meta)
+    with pytest.raises(ValueError, match="segment width"):
+        TA._edit_distance_cuda(
+            *[torch.empty((2, 32768) if i % 2 == 0 else (2,),
+                          dtype=torch.uint8 if i % 2 == 0
+                          else torch.int32, device="meta")
+              for i in range(4)])

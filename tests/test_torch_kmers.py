@@ -14,7 +14,15 @@ from flye_tpu.ops.kmers import stream_select_packed as jax_select
 from flye_tpu_torch.index import KmerIndex
 from flye_tpu_torch.io import SequenceStore
 from flye_tpu_torch.ops.kmers import splitmix64, stream_select_packed
+from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
 from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+
+@pytest.fixture(autouse=True)
+def cpu_runtime():
+    set_runtime(ParallelContext("cpu"))
+    yield
+    set_runtime(None)
 
 
 def _stream_chunks(lens, k, w, W, seed):

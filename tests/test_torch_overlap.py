@@ -15,7 +15,15 @@ from flye_tpu.overlap import OverlapEngine as JaxEngine
 from flye_tpu_torch.index import KmerIndex
 from flye_tpu_torch.io import SequenceStore
 from flye_tpu_torch.overlap import OverlapEngine
+from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
 from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+
+@pytest.fixture(autouse=True)
+def cpu_runtime():
+    set_runtime(ParallelContext("cpu"))
+    yield
+    set_runtime(None)
 
 
 @pytest.fixture(scope="module")

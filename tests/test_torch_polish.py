@@ -13,6 +13,14 @@ import torch
 import flye_tpu.ops.polish as P
 import flye_tpu_torch.ops.polish as TP
 from flye_tpu_torch.ops import _cuda
+from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
+
+
+@pytest.fixture(autouse=True)
+def cpu_runtime():
+    set_runtime(ParallelContext("cpu"))
+    yield
+    set_runtime(None)
 
 
 def _inputs(seed, shape):

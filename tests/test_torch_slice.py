@@ -1,22 +1,49 @@
-"""The ported slice end to end on the CPU: reads -> disjointigs ->
-consensus through `flye_tpu_torch.main --device cpu` must write the
-same files, byte for byte, as `flye_tpu.main` on the same reads.
+"""The ported pipeline end to end on the CPU: reads -> disjointigs ->
+consensus -> repeat graph -> contigs -> polished assembly through
+`flye_tpu_torch.main --device cpu` must write the same files, byte for
+byte, as `flye_tpu.main` on the same reads.
 
 40 kb genome at 25x with 15 kb mean reads: large enough that wide
 match groups reach both chain-DP buckets (4096 and 16384 matches)."""
 
 import filecmp
 import os
+import shutil
 
 import pytest
 
 import flye_tpu.main as jax_main
 import flye_tpu_torch.main as torch_main
 from flye_tpu_torch.io.fasta import write_fasta
+from flye_tpu_torch.parallel.runtime import (ParallelContext, get_runtime,
+                                             set_runtime)
 from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
 
+# every file flye_tpu.main writes, apart from its log and params.json
 OUTPUTS = ["00-assembly/draft_assembly.fasta",
-           "10-consensus/consensus.fasta"]
+           "10-consensus/consensus.fasta",
+           "20-repeat/repeat_graph_dump",
+           "20-repeat/read_alignment_dump",
+           "30-contigger/contigs.fasta",
+           "30-contigger/contigs_stats.txt",
+           "30-contigger/graph_final.gfa",
+           "30-contigger/graph_final.gv",
+           "30-contigger/graph_final.fasta",
+           "30-contigger/scaffolds_links.txt",
+           "40-polishing/filtered_contigs.fasta",
+           "40-polishing/polished_stats.txt",
+           "40-polishing/polished_edges.gfa",
+           "assembly.fasta",
+           "assembly_graph.gfa",
+           "assembly_graph.gv",
+           "assembly_info.txt"]
+
+
+@pytest.fixture(autouse=True)
+def cpu_runtime():
+    set_runtime(ParallelContext("cpu"))
+    yield
+    set_runtime(None)
 
 
 @pytest.fixture(scope="module")
@@ -28,8 +55,7 @@ def runs(tmp_path_factory):
                            seed=5)
     path = str(d / "reads.fa")
     write_fasta(reads, path)
-    common = ["--pacbio-raw", path, "-g", "40k", "--stop-after",
-              "consensus"]
+    common = ["--pacbio-raw", path, "-g", "40k"]
     assert jax_main.main(common + ["-o", str(d / "jax"),
                                    "--shards", "1"]) == 0
     assert torch_main.main(common + ["-o", str(d / "torch"),
@@ -40,30 +66,68 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("rel", OUTPUTS)
 def test_slice_outputs_byte_identical(runs, rel):
     ref, out = runs / "jax" / rel, runs / "torch" / rel
-    assert os.path.getsize(ref) > 40000
+    assert os.path.exists(ref)   # scaffolds_links.txt may be empty
     assert filecmp.cmp(ref, out, shallow=False)
 
 
-def test_later_stages_not_yet_ported(tmp_path):
-    """A run that does not stop at consensus is refused up front."""
+def test_slice_sequences_are_full_length(runs):
+    for rel in OUTPUTS[:2] + ["assembly.fasta"]:
+        assert os.path.getsize(runs / "torch" / rel) > 40000, rel
+
+
+@pytest.mark.parametrize("stage", ["contigger", "polishing"])
+def test_resume_reproduces_assembly(runs, stage):
+    """A run resumed at the contigger reloads the repeat stage's graph
+    and alignment dumps; one resumed at polishing reloads the
+    contigger's state from its files.  Both write the same final
+    assembly."""
+    d = runs / f"resumed_{stage}"
+    shutil.copytree(runs / "torch", d)
+    for rel in ("assembly.fasta", "assembly_info.txt",
+                "assembly_graph.gfa"):
+        os.remove(d / rel)
+    rc = torch_main.main(["--pacbio-raw", str(runs / "reads.fa"), "-g",
+                          "40k", "-o", str(d), "--device", "cpu",
+                          "--resume-from", stage])
+    assert rc == 0
+    for rel in ("assembly.fasta", "assembly_info.txt",
+                "assembly_graph.gfa"):
+        assert filecmp.cmp(runs / "torch" / rel, d / rel,
+                           shallow=False), rel
+
+
+@pytest.mark.parametrize("flag", [["--trestle"], ["--plasmids"],
+                                  ["--polish-target", "x.fa"]])
+def test_unported_options_refused(tmp_path, flag):
+    """Trestle, plasmid recovery and the standalone polisher are not
+    ported: a run asking for one is refused before any work."""
     rc = torch_main.main(["--pacbio-raw", str(tmp_path / "none.fa"),
                           "-o", str(tmp_path / "out"), "--device",
-                          "cpu"])
+                          "cpu"] + flag)
     assert rc == 1
     with open(tmp_path / "out" / "flye.log") as f:
-        assert "not yet ported" in f.read()
+        assert f"{flag[0]} not yet ported" in f.read()
+    assert not os.path.exists(tmp_path / "out" / "params.json")
 
 
 def test_cuda_device_without_card_raises():
     import torch
 
-    from flye_tpu_torch.parallel.runtime import init_runtime, set_runtime
+    from flye_tpu_torch.parallel.runtime import init_runtime
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    try:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            init_runtime(device="cuda")
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            init_runtime(n_shards=2, device="cpu")
-    finally:
-        set_runtime(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_runtime(device="cuda")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        init_runtime(n_shards=2, device="cpu")
+
+
+def test_library_runtime_defaults_to_cuda():
+    """With no runtime installed, library entry points get the GPU and
+    never fall back to the CPU quietly: without a card that raises."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    set_runtime(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_runtime()
