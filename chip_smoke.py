@@ -1,7 +1,7 @@
 """Smoke run of flye_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
-                          [--only-main]
+                          [--phases chain,polish,lev,main,fused,hifi]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
@@ -14,27 +14,43 @@ prints no result):
      1e-3 with the same finiteness, chars exact, two launches bitwise
      equal, and a synthetic hill climb converging to the same
      candidates;
-  4. K5 (Levenshtein) against its plain version on the card at the main
-     path's [4096, 64] and the segment buckets S = 16/64/256/1024,
+  4. K5 (Levenshtein) against its plain version on the card at the raw
+     path's [4096, 64], the segment buckets S = 16/64/256/1024 and the
+     HiFi path's largest batches [2^23, 64] and [2^23, 16],
      bit-identical, on edge rows
      (alen 0, blen 0, both 0, full length, identical strings) and
      random and related pairs, two launches bitwise equal;
-  5. the main path, `flye_tpu_torch.main --pacbio-raw ... --device cuda`
-     on a simulated 1 Mb genome at 30x, run to `assembly.fasta`: every
-     kernel must have launched, the consensus must reach IDENTITY_FLOOR
-     and the assembly ASSEMBLY_IDENTITY_FLOOR (window identity against
-     the truth genome) with ASSEMBLY_CONTIGS contigs, and the assembly
-     graph and info files must be non-empty.
+  5. the raw main path, `flye_tpu_torch.main --pacbio-raw ... --device
+     cuda` on a simulated 1 Mb genome at 30x, run to `assembly.fasta`:
+     K1, K2, K3 and K5 must have launched and K4 not (FLYE_TPU_FUSED is
+     off), the consensus must reach IDENTITY_FLOOR and the assembly
+     ASSEMBLY_IDENTITY_FLOOR (window identity against the truth genome)
+     with ASSEMBLY_CONTIGS contigs, and the assembly graph and info
+     files must be non-empty;
+  6. K4 (fused polish scoring) at the buckets where `fits_fused` holds:
+     bitwise equal to K2+K3, within 1e-3 of the plain version with the
+     same finiteness, chars exact, two launches bitwise equal; the
+     dispatch takes K2+K3 where K4 does not fit; a synthetic hill climb
+     with FLYE_TPU_FUSED=1 converges to the plain climb's candidates;
+  7. the HiFi path with FLYE_TPU_FUSED=1: `--pacbio-hifi` on the same
+     1 Mb genome (30x, 15 kb reads, 0.5% error) to `assembly.fasta`,
+     then the standalone polisher `--polish-target` on that run's
+     draft: K1, K4 and K5 must have launched, the assembly must reach
+     HIFI_ASSEMBLY_IDENTITY_FLOOR with HIFI_ASSEMBLY_CONTIGS contigs,
+     and polished_1.fasta the draft's identity with its contig count.
 Each kernel is timed (CUDA events) beside its plain version and its
 bound: the larger of the bytes it must move over the card's memory rate
 and the operations its inputs need over the card's peak rate for their
 type.  It prints the card's name and power limit, a `{"kernels": [...]}`
-line, and last `{"ok": true, "device": {...}}`.  `--main-device cpu`
-runs the main path on the CPU instead (how the floors were measured);
-`--only-main` skips phases 2-4.
+line with each kernel's launches on both paths, and last `{"ok": true,
+"device": {...}}`.  `--main-device cpu` runs phase 5 on the CPU instead
+(how the floors were measured); `--phases` runs the build and the named
+phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7).
 """
 
 import argparse
+import collections
+import contextlib
 import json
 import logging
 import os
@@ -57,6 +73,15 @@ IDENTITY_FLOOR = 0.998959798994975
 # contig count; see PERF.md.  Checked at 1 Mb only.
 ASSEMBLY_IDENTITY_FLOOR = 0.9989598997493735
 ASSEMBLY_CONTIGS = 1
+# the HiFi path (phase 7, 1 Mb): `--hifi-plain` on an H100, every
+# kernel replaced by its plain version on the card (in place of a
+# `--device cpu` run, which would not fit one chip call: the plain
+# versions on the card alone took 539 s for this phase), wrote the same
+# files byte for byte as the kernels' run: assembly.fasta at window
+# identity 1.0, minus 1e-3, in 2 contigs (the 999,974 bp circular genome
+# and a 4,978 bp repeat contig); see PERF.md.
+HIFI_ASSEMBLY_IDENTITY_FLOOR = 0.999
+HIFI_ASSEMBLY_CONTIGS = 2
 
 KERNELS = {
     "chain_dp": ("flye_tpu_torch/csrc/chain_dp.cu",
@@ -65,9 +90,16 @@ KERNELS = {
                         "flye_tpu/ops/polish_pallas.py:224"),
     "polish_forward_score": ("flye_tpu_torch/csrc/polish_score.cu",
                              "flye_tpu/ops/polish_pallas.py:273"),
+    "polish_fused": ("flye_tpu_torch/csrc/polish_fused.cu",
+                     "flye_tpu/ops/polish_pallas.py:365"),
     "levenshtein": ("flye_tpu_torch/csrc/levenshtein.cu",
                     "flye_tpu/ops/align_pallas.py:26"),
 }
+# kernels each driven path must launch (and, on the raw path, K4 must
+# not: FLYE_TPU_FUSED is off there)
+RAW_PATH_KERNELS = ("chain_dp", "polish_backward", "polish_forward_score",
+                    "levenshtein")
+HIFI_PATH_KERNELS = ("chain_dp", "polish_fused", "levenshtein")
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): 3.35 TB/s of
 # device memory and 67 TFLOP/s of float32 outside the tensor cores
@@ -145,7 +177,7 @@ def phase_build():
             err.append(e)
     th = threading.Thread(target=build_native)
     th.start()
-    sources = ["chain_dp", "polish_score", "levenshtein"]
+    sources = ["chain_dp", "polish_score", "polish_fused", "levenshtein"]
     _cuda.build(sources)
     th.join()
     if err:
@@ -218,6 +250,69 @@ def polish_inputs(seed, shape):
     return cand, clen, branches, blen, bmask, subs
 
 
+def hill_climb():
+    """A synthetic hill climb (64 bubbles of 30 bases, 24 noisy
+    branches, two planted errors each) through the kernels and through
+    the plain scoring, same schedule; raises unless both converge to
+    the same candidates.  Returns (bubbles restored to the truth, B)."""
+    import flye_tpu_torch.ops.polish as TP
+    rng = np.random.default_rng(7)
+    B, C, Cb, S, R = 64, 30, 40, 60, 24
+    true = rng.integers(0, 4, (B, C)).astype(np.uint8)
+    cand = np.zeros((B, Cb), np.uint8)
+    cand[:, :C] = true
+    for i in range(B):
+        idx = rng.integers(0, C, 2)
+        cand[i, idx] = (cand[i, idx] + 1) % 4
+    branches = np.zeros((B, R, S), np.uint8)
+    branches[:, :, :C] = true[:, None, :]
+    flip = rng.random((B, R, S)) < 0.05
+    branches = np.where(flip, rng.integers(0, 4, (B, R, S)),
+                        branches).astype(np.uint8)
+    blen = np.full((B, R), C, np.int32)
+    bmask = np.ones((B, R), bool)
+    subs = np.log(np.full((5, 5), 0.05, np.float32))
+    np.fill_diagonal(subs[:4, :4], np.log(0.8))
+    clen = np.full(B, C, np.int32)
+    k_out = TP.polish_bubbles(cand, clen, branches, blen, bmask, subs,
+                              max_iters=2 * Cb, use_kernel=True,
+                              device="cuda")
+    p_out = TP.polish_bubbles(cand, clen, branches, blen, bmask, subs,
+                              max_iters=2 * Cb, use_kernel=False,
+                              device="cuda")
+    if not (np.array_equal(k_out[0], p_out[0])
+            and np.array_equal(k_out[1], p_out[1])):
+        raise AssertionError("hill climb: kernels and plain converge "
+                             "differently")
+    fixed = sum(int(np.array_equal(k_out[0][i, :k_out[1][i]], true[i]))
+                for i in range(B))
+    return fixed, B
+
+
+def polish_bounds(B, Cb, R, S, clen, blen, bmask):
+    """Bounds of K2, K3 and K4 at one bucket: bytes are inputs read
+    once and outputs written once (K2's rows bt are K2's output and
+    K3's input; K4 keeps them on chip), operations the live cells
+    (candidate rows up to clen, branch columns up to blen; K3 only on
+    the branches bmask keeps)."""
+    rows = B * (Cb + 1) * R * (S + 1) * 4          # bt, f32
+    side = B * R * (S + 1) * 4                     # sg or gp
+    small = B * Cb + B * R * S + 4 * B * R + 4 * B * Cb + 100
+    outs = 4 * B * (1 + Cb + 4 * (Cb + 1) + 4 * Cb)
+    ops2 = K2_OPS_PER_CELL * int((clen[:, None].long()
+                                  * (blen.long() + 1)).sum())
+    ops3 = K3_OPS_PER_CELL * int(((clen[:, None].long() + 1)
+                                  * (blen.long() + 1)
+                                  * bmask.long()).sum())
+    b2 = bound(small + side + 4 * B * (Cb + 1) + 4 * B + rows, ops2,
+               FP32_OPS_PER_S)
+    b3 = bound(small + side + 4 * B * R + rows + outs, ops3,
+               FP32_OPS_PER_S)
+    b4 = bound(small + 2 * side + 4 * B * (Cb + 1) + 4 * B + 4 * B * R
+               + outs, ops2 + ops3, FP32_OPS_PER_S)
+    return b2, b3, b4
+
+
 def phase_polish(report):
     import torch
     import flye_tpu_torch.ops.polish as TP
@@ -273,20 +368,7 @@ def phase_polish(report):
             cand, branches, blen, bmask, subs, tables, Bm), 1)
         del Bm, bt
         torch.cuda.empty_cache()
-        # bytes: inputs read once, outputs written once; operations:
-        # the live cells (candidate rows up to clen, branch columns up
-        # to blen; K3 only on the branches bmask keeps)
-        rows = B * (Cb + 1) * R * (S + 1) * 4          # bt, f32
-        side = B * R * (S + 1) * 4                     # sg or gp
-        small = B * Cb + B * R * S + 4 * B * R + 4 * B * Cb + 100
-        cells = (clen[:, None].long() * (blen.long() + 1))
-        b2 = bound(small + side + 4 * B * (Cb + 1) + 4 * B + rows,
-                   K2_OPS_PER_CELL * int(cells.sum()), FP32_OPS_PER_S)
-        cells3 = ((clen[:, None].long() + 1) * (blen.long() + 1)
-                  * bmask.long())
-        b3 = bound(small + side + 4 * B * R + rows
-                   + 4 * B * (1 + Cb + 4 * (Cb + 1) + 4 * Cb),
-                   K3_OPS_PER_CELL * int(cells3.sum()), FP32_OPS_PER_S)
+        b2, b3, _ = polish_bounds(B, Cb, R, S, clen, blen, bmask)
         print(f"[K2+K3] (Cb,S,R)=({Cb},{S},{R}) x{B} lanes: max err "
               f"K2 {e2:.2e} K3 {e3:.2e}, chars exact, launches "
               f"bitwise equal; K2 {ms2:.3f} ms (plain {pl2:.1f} ms, "
@@ -297,37 +379,7 @@ def phase_polish(report):
         per_k3.append({"shape": [B, Cb, R, S], "ms": ms3, "plain_ms": pl3,
                        "bound_ms": b3[0], "bound_by": b3[1]})
 
-    # synthetic hill climb: kernels vs plain scoring, same schedule
-    rng = np.random.default_rng(7)
-    B, C, Cb, S, R = 64, 30, 40, 60, 24
-    true = rng.integers(0, 4, (B, C)).astype(np.uint8)
-    cand = np.zeros((B, Cb), np.uint8)
-    cand[:, :C] = true
-    for i in range(B):
-        idx = rng.integers(0, C, 2)
-        cand[i, idx] = (cand[i, idx] + 1) % 4
-    branches = np.zeros((B, R, S), np.uint8)
-    branches[:, :, :C] = true[:, None, :]
-    flip = rng.random((B, R, S)) < 0.05
-    branches = np.where(flip, rng.integers(0, 4, (B, R, S)),
-                        branches).astype(np.uint8)
-    blen = np.full((B, R), C, np.int32)
-    bmask = np.ones((B, R), bool)
-    subs = np.log(np.full((5, 5), 0.05, np.float32))
-    np.fill_diagonal(subs[:4, :4], np.log(0.8))
-    clen = np.full(B, C, np.int32)
-    k_out = TP.polish_bubbles(cand, clen, branches, blen, bmask, subs,
-                              max_iters=2 * Cb, use_kernel=True,
-                              device="cuda")
-    p_out = TP.polish_bubbles(cand, clen, branches, blen, bmask, subs,
-                              max_iters=2 * Cb, use_kernel=False,
-                              device="cuda")
-    if not (np.array_equal(k_out[0], p_out[0])
-            and np.array_equal(k_out[1], p_out[1])):
-        raise AssertionError("hill climb: kernels and plain converge "
-                             "differently")
-    fixed = sum(int(np.array_equal(k_out[0][i, :k_out[1][i]], true[i]))
-                for i in range(B))
+    fixed, B = hill_climb()
     print(f"[K2+K3] hill climb x{B}: kernel == plain, {fixed}/{B} "
           "bubbles restored to the truth", flush=True)
     report["polish_backward"] = {"max_abs_err": err_k2,
@@ -362,9 +414,10 @@ def phase_lev(report):
                                           edit_distance_batch)
     dev = torch.device("cuda")
     per_shape = []
-    # first the shape the 1 Mb main path hands K5, then the buckets
+    # first the shape the 1 Mb raw path hands K5, then the buckets, then
+    # the HiFi path's largest shapes
     for S, B in [(64, 4096), (16, 4096), (64, 1024), (256, 256),
-                 (1024, 64)]:
+                 (1024, 64), (64, 1 << 23), (16, 1 << 23)]:
         a, al, b, bl = lev_inputs(B, S, S + B)
         args = [torch.from_numpy(x).to(dev) for x in (a, al, b, bl)]
         d_k = edit_distance_batch(*args)
@@ -502,106 +555,347 @@ class _StageTimes(logging.Handler):
                 for (name, t), e in zip(self.starts, ends)}
 
 
-def phase_main(genome_mb, device):
+def run_cli(tag, argv):
+    """One `flye_tpu_torch.main` run; raises unless it exits 0.  Prints
+    its step times; returns (wall s, seconds per stage, the [B, S]
+    shapes it handed K5).  Launch counts are the caller's to reset."""
     import torch
-    from flye_tpu_torch import native
     from flye_tpu_torch import main as flye_main
-    from flye_tpu_torch.io.fasta import read_seq_file, write_fasta
-    from flye_tpu_torch.ops import _cuda
     from flye_tpu_torch.ops import align
-    from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
-
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    os.makedirs(RUN_DIR)
-    glen = int(genome_mb * 1_000_000)
-    t0 = time.perf_counter()
-    genome = random_genome(glen, seed=11,
-                           repeat_spec=[(5000, 3), (2000, 4)])
-    reads = simulate_reads(genome, coverage=30, mean_length=8000,
-                           error_rate=0.08, error_mix=(0.2, 0.5, 0.3),
-                           seed=7)
-    reads_path = os.path.join(RUN_DIR, "reads.fasta")
-    write_fasta(reads, reads_path)
-    n_bases = sum(len(s) for _, s in reads)
-    print(f"[main] simulated {glen} bp genome, {len(reads)} reads, "
-          f"{n_bases} bases in {time.perf_counter() - t0:.1f} s",
-          flush=True)
 
     stages = _StageTimes()
     # on the root logger: the CLI replaces the package logger's handlers
     logging.getLogger().addHandler(stages)
-    # the [B, S] shapes the main path hands K5 (the wrapper counts)
     lev_shapes = []
     lev_launch = align._edit_distance_cuda
 
     def recorded(a, *rest):
-        lev_shapes.append(list(a.shape))
+        lev_shapes.append(tuple(a.shape))
         return lev_launch(a, *rest)
     align._edit_distance_cuda = recorded
-    torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launches()
-    out = os.path.join(RUN_DIR, "out")
     t0 = time.perf_counter()
     try:
-        rc = flye_main.main(["--pacbio-raw", reads_path, "-o", out, "-g",
-                             f"{glen}", "--device", device])
-        torch.cuda.synchronize()
+        rc = flye_main.main(argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     finally:
         align._edit_distance_cuda = lev_launch
+        logging.getLogger().removeHandler(stages)
     wall = time.perf_counter() - t0
     jobs = stages.job_seconds(time.time())
-    launches = dict(_cuda.LAUNCHES)
-    logging.getLogger().removeHandler(stages)
     if rc != 0:
-        raise RuntimeError(f"main path exited with {rc}")
-    peak = torch.cuda.max_memory_allocated()
+        raise RuntimeError(f"{tag} run exited with {rc}")
     for line in stages.lines:
-        print(f"[main]   {line}", flush=True)
+        print(f"[{tag}]   {line}", flush=True)
+    return wall, jobs, lev_shapes
+
+
+def simulate(tag, glen, **read_args):
+    """Simulated truth genome (the smoke's 1 Mb layout: seed 11, repeats
+    5 kb x3 and 2 kb x4) and its reads in RUN_DIR."""
+    from flye_tpu_torch.io.fasta import write_fasta
+    from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    os.makedirs(RUN_DIR)
+    t0 = time.perf_counter()
+    genome = random_genome(glen, seed=11,
+                           repeat_spec=[(5000, 3), (2000, 4)])
+    reads = simulate_reads(genome, seed=7, **read_args)
+    reads_path = os.path.join(RUN_DIR, "reads.fasta")
+    write_fasta(reads, reads_path)
+    n_bases = sum(len(s) for _, s in reads)
+    print(f"[{tag}] simulated {glen} bp genome, {len(reads)} reads, "
+          f"{n_bases} bases in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return genome, reads_path
+
+
+def identity(tag, path, genome, floor=None):
+    """Window identity of a FASTA file against the truth; raises below
+    `floor`.  Returns (identity, contigs)."""
+    from flye_tpu_torch.io.fasta import read_seq_file
+    contigs = read_seq_file(path)
+    total = sum(len(s) for _, s in contigs)
+    if total == 0:
+        raise AssertionError(f"empty {path}")
+    ident, n_anch, n_win = window_identity(contigs, genome, "cuda")
+    print(f"[{tag}] {os.path.relpath(path, RUN_DIR)}: {len(contigs)} "
+          f"contigs, {total} bp (truth {len(genome)}); window identity "
+          f"{ident!r} ({n_anch}/{n_win} windows anchored)", flush=True)
+    if floor is not None and ident < floor:
+        raise AssertionError(f"{path}: identity {ident!r} below the "
+                             f"floor {floor}")
+    return ident, len(contigs)
+
+
+def check_launches(tag, launches, must, must_not=()):
+    missing = [k for k in must if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {tag} path: "
+                             f"{missing}")
+    extra = [k for k in must_not if launches[k] != 0]
+    if extra:
+        raise AssertionError(f"kernels launched on the {tag} path that "
+                             f"must not be: {extra}")
+
+
+def phase_main(genome_mb, device):
+    import torch
+    from flye_tpu_torch import native
+    from flye_tpu_torch.ops import _cuda
+
+    glen = int(genome_mb * 1_000_000)
+    genome, reads_path = simulate(
+        "main", glen, coverage=30, mean_length=8000, error_rate=0.08,
+        error_mix=(0.2, 0.5, 0.3))
+    out = os.path.join(RUN_DIR, "out")
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    wall, jobs, lev_shapes = run_cli(
+        "main", ["--pacbio-raw", reads_path, "-o", out, "-g", f"{glen}",
+                 "--device", device])
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     print(f"[main] stage seconds {jobs}", flush=True)
     print(f"[main] wall {wall:.1f} s to assembly.fasta, device peak "
           f"memory {peak / 2**30:.2f} GiB, launches {launches}, K5 "
-          f"shapes [B, S] {lev_shapes}", flush=True)
+          f"shapes [B, S] {sorted(collections.Counter(lev_shapes).items())}",
+          flush=True)
     if not native.loaded():
         raise AssertionError("native helpers were not loaded")
     if len(jobs) != 7:
         raise AssertionError(f"expected 7 stages, ran {list(jobs)}")
     if device == "cuda":
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the main "
-                                 f"path: {missing}")
+        check_launches("raw", launches, RAW_PATH_KERNELS,
+                       must_not=("polish_fused",))
     for rel in ("assembly_graph.gfa", "assembly_info.txt"):
         path = os.path.join(out, rel)
         if not os.path.exists(path) or os.path.getsize(path) == 0:
             raise AssertionError(f"{rel} missing or empty")
     checked = device == "cuda" and genome_mb == 1.0
-    for rel, floor in (("10-consensus/consensus.fasta", IDENTITY_FLOOR),
-                       ("assembly.fasta", ASSEMBLY_IDENTITY_FLOOR)):
-        contigs = read_seq_file(os.path.join(out, rel))
-        total = sum(len(s) for _, s in contigs)
-        if total == 0:
-            raise AssertionError(f"empty {rel}")
-        ident, n_anch, n_win = window_identity(contigs, genome, "cuda")
-        print(f"[main] {rel}: {len(contigs)} contigs, {total} bp (truth "
-              f"{glen}); window identity {ident!r} ({n_anch}/{n_win} "
-              "windows anchored)", flush=True)
-        if checked and ident < floor:
-            raise AssertionError(f"{rel}: identity {ident!r} below the "
-                                 f"floor {floor}")
-    if checked and len(contigs) != ASSEMBLY_CONTIGS:
-        raise AssertionError(f"{len(contigs)} contigs in assembly.fasta, "
+    identity("main", os.path.join(out, "10-consensus/consensus.fasta"),
+             genome, IDENTITY_FLOOR if checked else None)
+    _, n_contigs = identity("main", os.path.join(out, "assembly.fasta"),
+                            genome,
+                            ASSEMBLY_IDENTITY_FLOOR if checked else None)
+    if checked and n_contigs != ASSEMBLY_CONTIGS:
+        raise AssertionError(f"{n_contigs} contigs in assembly.fasta, "
                              f"the CPU run has {ASSEMBLY_CONTIGS}")
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+def phase_fused(report):
+    import torch
+    import flye_tpu_torch.ops.polish as TP
+    from flye_tpu_torch.ops import _cuda
+    dev = torch.device("cuda")
+    per_shape = []
+    err = 0.0
+    # the buckets K4 holds (fits_fused), the dominant one first
+    for (Cb, S, R), B in [((64, 96, 8), 1024), ((48, 63, 8), 1024),
+                          ((32, 31, 8), 1024)]:
+        if not TP.fits_fused(Cb, R, S):
+            raise AssertionError(f"K4 does not fit {Cb, S, R}")
+        args = [torch.from_numpy(a).to(dev)
+                for a in polish_inputs(Cb + S + 1, (B, Cb, R, S))]
+        cand, clen, branches, blen, bmask, subs = args
+        tables = TP._tables(cand, clen, branches, blen, subs)
+        n0 = _cuda.LAUNCHES["polish_fused"]
+        raw_f = TP.score_edits_raw(*args, fused=True)
+        if _cuda.LAUNCHES["polish_fused"] != n0 + 1:
+            raise AssertionError(f"fused scoring did not take K4 at "
+                                 f"{Cb, S, R}")
+        raw_f2 = TP._fused_scores_cuda(*args, tables)
+        raw_pair = TP._score_edits_raw_cuda(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(raw_f, raw_f2)):
+            raise AssertionError(f"two K4 launches differ at {Cb, S, R}")
+        if not all(torch.equal(a, b) for a, b in zip(raw_f, raw_pair)):
+            raise AssertionError(f"K4 != K2+K3 at {Cb, S, R}")
+        raw_p = TP._score_edits_raw(*args)
+        e = 0.0
+        for a, b in zip(raw_f, raw_p):
+            fa = a > -1e29
+            if not torch.equal(fa, b > -1e29):
+                raise AssertionError(f"K4 finiteness differs at "
+                                     f"{Cb, S, R}")
+            if fa.any():
+                e = max(e, float((a - b)[fa].abs().max()))
+        if e > 1e-3:
+            raise AssertionError(f"K4 scores differ by {e} at {Cb, S, R}")
+        fk = TP._finish_scores(cand, clen, *raw_f, groups=1)
+        fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
+        if not (torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])):
+            raise AssertionError(f"K4 chars differ at {Cb, S, R}")
+        err = max(err, e)
+        ms = cuda_ms(lambda: TP._fused_scores_cuda(*args, tables), 3)
+        ms2 = cuda_ms(lambda: TP._backward_rows_cuda(
+            cand, clen, branches, blen, subs, tables), 3)
+        bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs,
+                                    tables)
+        ms3 = cuda_ms(lambda: TP._forward_scores_cuda(
+            cand, branches, blen, bmask, subs, tables, bt), 3)
+        del bt
+        plain_ms = cuda_ms(lambda: TP._forward_scores(
+            cand, branches, blen, bmask, subs, tables, TP._backward_rows(
+                cand, clen, branches, blen, subs, tables)), 1)
+        torch.cuda.empty_cache()
+        _, _, (b_ms, b_by) = polish_bounds(B, Cb, R, S, clen, blen, bmask)
+        print(f"[K4] (Cb,S,R)=({Cb},{S},{R}) x{B} lanes: == K2+K3 "
+              f"bitwise, max err vs plain {e:.2e}, chars exact, launches "
+              f"bitwise equal; K4 {ms:.3f} ms, K2+K3 {ms2 + ms3:.3f} ms "
+              f"({ms2:.3f} + {ms3:.3f}), plain {plain_ms:.1f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), shared memory "
+              f"{TP._fused_smem_bytes(Cb, R, S)} B per block", flush=True)
+        per_shape.append({"shape": [B, Cb, R, S], "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "pair_ms": ms2 + ms3})
+    # where K4 does not fit, the fused request takes K2+K3
+    for Cb, S, R in [(96, 127, 8), (160, 240, 8)]:
+        args = [torch.from_numpy(a).to(dev)
+                for a in polish_inputs(Cb + S, (16, Cb, R, S))]
+        before = dict(_cuda.LAUNCHES)
+        TP.score_edits_raw(*args, fused=True)
+        torch.cuda.synchronize()
+        took = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+        if (took["polish_fused"] != 0 or took["polish_backward"] != 1
+                or took["polish_forward_score"] != 1):
+            raise AssertionError(f"dispatch at {Cb, S, R}: {took}")
+    print("[K4] dispatch: K2+K3 at (96,127,8) and (160,240,8)", flush=True)
+    # the hill climb with FLYE_TPU_FUSED=1: every lane fits K4
+    before = dict(_cuda.LAUNCHES)
+    os.environ["FLYE_TPU_FUSED"] = "1"
+    try:
+        fixed, B = hill_climb()
+    finally:
+        os.environ.pop("FLYE_TPU_FUSED", None)
+    took = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    if took["polish_fused"] == 0 or took["polish_backward"] != 0:
+        raise AssertionError(f"fused hill climb launched {took}")
+    print(f"[K4] hill climb x{B} with FLYE_TPU_FUSED=1: K4 == plain, "
+          f"{fixed}/{B} bubbles restored to the truth, "
+          f"{took['polish_fused']} K4 launches", flush=True)
+    report["polish_fused"] = {"max_abs_err": err, "per_shape": per_shape}
+
+
+# ---------------------------------------------------------------- phase 7
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route every kernel wrapper to its plain version for CUDA tensors
+    too: the reference run of `--hifi-plain`, independent of the
+    hand-written kernels."""
+    import flye_tpu_torch.ops.align as A
+    import flye_tpu_torch.ops.chain as C
+    import flye_tpu_torch.ops.polish as P
+    saved = [(C, "_chain_dp_cuda", C._chain_dp_scan),
+             (A, "_edit_distance_cuda", A._edit_distance_plain),
+             (P, "_score_edits_raw_cuda", P._score_edits_raw),
+             (P, "_score_edits_raw_fused_cuda", P._score_edits_raw)]
+    saved = [(mod, name, getattr(mod, name), plain)
+             for mod, name, plain in saved]
+    for mod, name, _, plain in saved:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, kernel, _ in saved:
+            setattr(mod, name, kernel)
+
+
+def phase_hifi(plain=False, keep=None):
+    """`--pacbio-hifi` to assembly.fasta, then `--polish-target` on its
+    draft, both with FLYE_TPU_FUSED=1; returns the launches of both.
+    plain: run through the plain versions on the card (no launch checks,
+    no floors); keep: move the two output directories there."""
+    import torch
+    from flye_tpu_torch.ops import _cuda
+
+    glen = 1_000_000
+    genome, reads_path = simulate("hifi", glen, coverage=30,
+                                  mean_length=15000, error_rate=0.005)
+    out = os.path.join(RUN_DIR, "hifi")
+    out_pt = os.path.join(RUN_DIR, "hifi_pt")
+    draft = os.path.join(out, "00-assembly", "draft_assembly.fasta")
+    os.environ["FLYE_TPU_FUSED"] = "1"
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    try:
+        with plain_versions() if plain else contextlib.nullcontext():
+            wall, jobs, lev_shapes = run_cli(
+                "hifi", ["--pacbio-hifi", reads_path, "-o", out, "-g",
+                         f"{glen}", "--device", "cuda"])
+            asm_launches = dict(_cuda.LAUNCHES)
+            wall_pt, _, lev_pt = run_cli(
+                "hifi-pt", ["--polish-target", draft, "--pacbio-hifi",
+                            reads_path, "-o", out_pt, "--device", "cuda"])
+            launches = dict(_cuda.LAUNCHES)
+    finally:
+        os.environ.pop("FLYE_TPU_FUSED", None)
+    peak = torch.cuda.max_memory_allocated()
+    pt_launches = {k: launches[k] - asm_launches[k] for k in launches}
+    print(f"[hifi] stage seconds {jobs}", flush=True)
+    print(f"[hifi] wall {wall:.1f} s to assembly.fasta, launches "
+          f"{asm_launches}, K5 shapes [B, S] "
+          f"{sorted(collections.Counter(lev_shapes).items())}", flush=True)
+    print(f"[hifi] polish-target wall {wall_pt:.1f} s, launches "
+          f"{pt_launches}, K5 shapes [B, S] "
+          f"{sorted(collections.Counter(lev_pt).items())}", flush=True)
+    print(f"[hifi] device peak memory {peak / 2**30:.2f} GiB over both "
+          f"runs, launches {launches}", flush=True)
+    if len(jobs) != 7:
+        raise AssertionError(f"expected 7 stages, ran {list(jobs)}")
+    if not plain:
+        check_launches("HiFi", launches, HIFI_PATH_KERNELS)
+    identity("hifi", os.path.join(out, "10-consensus/consensus.fasta"),
+             genome)
+    _, n_contigs = identity("hifi", os.path.join(out, "assembly.fasta"),
+                            genome,
+                            None if plain else HIFI_ASSEMBLY_IDENTITY_FLOOR)
+    if not plain and n_contigs != HIFI_ASSEMBLY_CONTIGS:
+        raise AssertionError(f"{n_contigs} contigs in the HiFi assembly."
+                             f"fasta, the reference has "
+                             f"{HIFI_ASSEMBLY_CONTIGS}")
+    d_ident, d_contigs = identity("hifi", draft, genome)
+    _, p_contigs = identity("hifi", os.path.join(out_pt,
+                                                 "polished_1.fasta"),
+                            genome, None if plain else d_ident)
+    if p_contigs != d_contigs:
+        raise AssertionError(f"polished_1.fasta has {p_contigs} contigs, "
+                             f"the draft {d_contigs}")
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+        for d in (out, out_pt):
+            shutil.move(d, os.path.join(keep, os.path.basename(d)))
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    return launches
+
+
+PHASES = ("chain", "polish", "lev", "main", "fused", "hifi")
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--genome-mb", type=float, default=1.0)
+    ap.add_argument("--genome-mb", type=float, default=1.0,
+                    help="genome of the raw path (phase 5)")
     ap.add_argument("--main-device", choices=["cuda", "cpu"],
-                    default="cuda")
-    ap.add_argument("--only-main", action="store_true")
+                    default="cuda", help="device of the raw path")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (the build always runs)")
+    ap.add_argument("--hifi-plain", action="store_true",
+                    help="run phase 7 through the plain versions on the "
+                    "card (how its floors were measured)")
+    ap.add_argument("--keep-runs", default=None, metavar="DIR",
+                    help="move phase 7's output directories to DIR")
     args = ap.parse_args()
+    phases = args.phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -613,21 +907,35 @@ def main():
 
     phase_build()
     report = {}
-    if not args.only_main:
-        phase_chain(report)
-        phase_polish(report)
-        phase_lev(report)
-    launches = phase_main(args.genome_mb, args.main_device)
+    paths = {}
+    for name, run in (("chain", lambda: phase_chain(report)),
+                      ("polish", lambda: phase_polish(report)),
+                      ("lev", lambda: phase_lev(report)),
+                      ("main", lambda: phase_main(args.genome_mb,
+                                                  args.main_device)),
+                      ("fused", lambda: phase_fused(report)),
+                      ("hifi", lambda: phase_hifi(args.hifi_plain,
+                                                  args.keep_runs))):
+        if name in phases:
+            t0 = time.perf_counter()
+            out = run()
+            if name in ("main", "hifi"):
+                paths["raw" if name == "main" else "hifi"] = out
+            print(f"[phase] {name} done in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
 
     # the first shape of each kernel heads its entry; no single PyTorch
-    # call computes any of these functions, so library_ms is null
+    # call computes any of these functions, so library_ms is null;
+    # launches are summed over the driven paths, each path's beside
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = report.get(name)
         head = r["per_shape"][0] if r else {}
+        by_path = {p: counts[name] for p, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"] if r else None,
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"),

@@ -5,14 +5,16 @@ Job framework, flye/main.py): the same parser, output layout
 (00-assembly ... 40-polishing + the final assembly files) and
 job-granular resume via params.json.  The default raw pipeline is
 ported: configure -> assembly -> consensus -> repeat -> contigger ->
-polishing -> finalize.  The optional stages Trestle (`--trestle`) and
-plasmid recovery (`--plasmids`), the standalone polisher
-(`--polish-target`), `--profile` and `--shards` above 1 are not yet
-ported and are refused up front.
+polishing -> finalize, for every read type, and so is the standalone
+polisher (`--polish-target`).  The optional stages Trestle
+(`--trestle`) and plasmid recovery (`--plasmids`), `--profile` and
+`--shards` above 1 are not yet ported and are refused up front.
 
 Usage:
     python -m flye_tpu_torch.main --pacbio-raw reads.fasta -o out_dir \
         -g 1m --device cuda
+    python -m flye_tpu_torch.main --polish-target draft.fasta \
+        --pacbio-hifi reads.fasta -o out_dir -i 2 --device cuda
 """
 
 from __future__ import annotations
@@ -486,8 +488,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--polish-target", default=None, metavar="FASTA",
                         help="run the standalone polisher on this "
                              "sequence file instead of assembling "
-                             "(reference: flye --polish-target; not yet "
-                             "ported to flye_tpu_torch)")
+                             "(reference: flye --polish-target)")
     parser.add_argument("--hifi-error", type=float, default=None,
                         metavar="FLOAT",
                         help="expected HiFi error rate (e.g. 0.003); "
@@ -537,6 +538,30 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _run_polisher_only(args) -> int:
+    """Standalone polisher entry (reference: flye/main.py:509-518
+    _run_polisher_only): polish an existing assembly with the given
+    reads, writing polished_<i>.fasta per iteration."""
+    from flye_tpu_torch.io.fasta import read_seq_file
+    from flye_tpu_torch.parallel.runtime import init_runtime
+    from flye_tpu_torch.polishing.polisher import polish
+
+    ctx = RunContext(args)
+    init_runtime(args.shards, args.device)
+    logger.info("Running standalone polisher on %s", args.polish_target)
+    target = read_seq_file(args.polish_target)
+    if not target:
+        raise PipelineException(f"empty target: {args.polish_target}")
+    reads = ctx.load_reads()
+    current = target
+    for it in range(1, args.iterations + 1):
+        current = polish(current, reads, ctx.platform, num_iters=1)
+        out = os.path.join(args.out_dir, f"polished_{it}.fasta")
+        write_fasta(current, out)
+        logger.info("Polished iteration %d: %s", it, out)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -554,14 +579,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                       debug=args.debug)
     refused = [f"--{stage}" for stage in NOT_PORTED_STAGES
                if getattr(args, stage)]
-    refused += [flag for flag, on in (
-        ("--polish-target", args.polish_target),
-        ("--profile", args.profile)) if on]
+    if args.profile:
+        refused.append("--profile")
     if refused:
         logger.error("%s not yet ported to flye_tpu_torch",
                      ", ".join(refused))
         logger.error("Pipeline aborted")
         return 1
+    if args.polish_target:
+        try:
+            return _run_polisher_only(args)
+        except PipelineException as e:
+            logger.error("%s", e)
+            logger.error("Pipeline aborted")
+            return 1
     try:
         return run_pipeline(args)
     except PipelineException as e:

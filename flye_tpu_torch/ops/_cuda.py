@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches; reset with reset_launches()
 LAUNCHES: Dict[str, int] = {"chain_dp": 0, "polish_backward": 0,
-                            "polish_forward_score": 0, "levenshtein": 0}
+                            "polish_forward_score": 0, "polish_fused": 0,
+                            "levenshtein": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

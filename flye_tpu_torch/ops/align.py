@@ -14,7 +14,11 @@ dependency resolves as a prefix-min, cummin of tmp[k] - k), which is
 also the kernel's oracle.  The repeat stage reaches it on every read
 type: the repeat graph is built from disjointig self-overlaps with
 `nucl_alignment=True` (`repeat/driver.py`), whose segments
-`SegmentBatcher.run` scores here.
+`SegmentBatcher.run` scores here.  The base-alignment read types
+(`reads_base_alignment=1`, e.g. HiFi) score the segments of every read
+overlap too, millions per batch of reads, so the segment path (split,
+homopolymer compression, bucketing, padding) runs as array operations
+over whole overlaps rather than a loop over segments.
 """
 
 from __future__ import annotations
@@ -102,66 +106,106 @@ def _edit_distance_cuda(a: torch.Tensor, alen: torch.Tensor,
     return out
 
 
-def hpc_compress(codes: np.ndarray) -> np.ndarray:
-    """Homopolymer-compress a code array (host)."""
-    if len(codes) == 0:
-        return codes
-    keep = np.concatenate([[True], codes[1:] != codes[:-1]])
-    return codes[keep]
+def _tile_segments(codes: np.ndarray, pos: np.ndarray, use_hpc: bool):
+    """The segments codes[pos[i]:pos[i+1]] of non-decreasing positions,
+    each homopolymer-compressed on its own when use_hpc (its first base
+    kept, then every base unlike its predecessor), as one concatenation
+    and the segment lengths.  The segments tile [pos[0], pos[-1]), so a
+    few array operations do what a loop over segments would."""
+    n = len(codes)
+    if len(pos) < 2:
+        return codes[:0], np.zeros(0, dtype=np.int64)
+    lo = np.minimum(pos[:-1], n)
+    hi = np.maximum(np.minimum(pos[1:], n), lo)
+    span = codes[lo[0]:hi[-1]]
+    if not use_hpc:
+        return span, (hi - lo).astype(np.int64)
+    keep = np.ones(len(span), dtype=bool)
+    keep[1:] = span[1:] != span[:-1]
+    starts = (lo - lo[0])[hi > lo]
+    keep[starts] = True
+    csum = np.concatenate([[0], np.cumsum(keep)])
+    return span[keep], csum[hi - lo[0]] - csum[lo - lo[0]]
 
 
 class SegmentBatcher:
     """Accumulates (a, b) segment pairs and scores them bucketed by
-    length, amortizing kernel launches across many overlaps."""
+    length, amortizing kernel launches across many overlaps.  Segments
+    are kept as concatenations with their lengths, and `run` builds the
+    padded [B, S] rows of each bucket with array operations."""
 
     def __init__(self):
-        self._segments: List[Tuple[np.ndarray, np.ndarray]] = []
+        self._parts: List[Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]] = []
+        self._n = 0
 
     def add(self, a: np.ndarray, b: np.ndarray) -> int:
-        self._segments.append((a, b))
-        return len(self._segments) - 1
+        return int(self.add_many(a, np.array([len(a)]), b,
+                                 np.array([len(b)]))[0])
+
+    def add_many(self, a_flat: np.ndarray, a_lens: np.ndarray,
+                 b_flat: np.ndarray, b_lens: np.ndarray) -> np.ndarray:
+        """Queue the pairs whose a sides are consecutive pieces of
+        a_flat (lengths a_lens) and b sides of b_flat; returns their
+        ids."""
+        ids = np.arange(self._n, self._n + len(a_lens))
+        self._n += len(a_lens)
+        self._parts.append((np.asarray(a_flat, np.uint8),
+                            np.asarray(a_lens, np.int64),
+                            np.asarray(b_flat, np.uint8),
+                            np.asarray(b_lens, np.int64)))
+        return ids
 
     def run(self) -> np.ndarray:
         """Edit distance for every added pair, preserving order."""
-        n = len(self._segments)
-        out = np.zeros(n, dtype=np.int64)
-        by_bucket = {}
-        for i, (a, b) in enumerate(self._segments):
-            m = max(len(a), len(b))
-            bucket = None
-            for s in SEGMENT_BUCKETS:
-                if m <= s:
-                    bucket = s
-                    break
-            if bucket is None:
-                # segment longer than the largest bucket: truncate the
-                # tails and charge the length difference (rare giant
-                # indels between anchors)
-                s = SEGMENT_BUCKETS[-1]
-                out[i] += max(len(a), len(b)) - min(s, min(len(a), len(b)))
-                a, b = a[:s], b[:s]
-                bucket = s
-            by_bucket.setdefault(bucket, []).append((i, a, b))
-        for bucket, items in by_bucket.items():
+        out = np.zeros(self._n, dtype=np.int64)
+        if self._n == 0:
+            return out
+        a_flat, al, b_flat, bl = (np.concatenate(x) for x in
+                                  zip(*self._parts))
+        self._parts, self._n = [], 0
+        a_start = np.cumsum(al) - al
+        b_start = np.cumsum(bl) - bl
+        m = np.maximum(al, bl)
+        # the smallest bucket that holds the longer side; a segment
+        # longer than the largest bucket is cut to it, tails dropped, and
+        # charged the length difference (rare giant indels between
+        # anchors)
+        top = SEGMENT_BUCKETS[-1]
+        over = m > top
+        out[over] += m[over] - np.minimum(top, np.minimum(al, bl)[over])
+        al, bl = np.minimum(al, top), np.minimum(bl, top)
+        bucket = np.asarray(SEGMENT_BUCKETS)[np.minimum(
+            np.searchsorted(SEGMENT_BUCKETS, m), len(SEGMENT_BUCKETS) - 1)]
+        from flye_tpu_torch.parallel.runtime import get_runtime
+        for s in SEGMENT_BUCKETS:
+            rows = np.flatnonzero(bucket == s)
+            if not len(rows):
+                continue
             # rows padded to a power of two (the JAX package's batch
             # shapes); padded rows have zero lengths -> distance 0
-            B = 1 << max(4, (len(items) - 1).bit_length())
-            av = np.zeros((B, bucket), dtype=np.uint8)
-            bv = np.zeros((B, bucket), dtype=np.uint8)
-            al = np.zeros(B, dtype=np.int32)
-            bl = np.zeros(B, dtype=np.int32)
-            for r, (_, a, b) in enumerate(items):
-                av[r, :len(a)] = a
-                bv[r, :len(b)] = b
-                al[r] = len(a)
-                bl[r] = len(b)
-            from flye_tpu_torch.parallel.runtime import get_runtime
+            B = 1 << max(4, (len(rows) - 1).bit_length())
+            av = _pad_rows(a_flat, a_start[rows], al[rows], B, s)
+            bv = _pad_rows(b_flat, b_start[rows], bl[rows], B, s)
+            alp = np.zeros(B, dtype=np.int32)
+            blp = np.zeros(B, dtype=np.int32)
+            alp[:len(rows)] = al[rows]
+            blp[:len(rows)] = bl[rows]
             d = edit_distance_batch(
-                *get_runtime().shard_rows(av, al, bv, bl)).cpu().numpy()
-            for r, (i, _, _) in enumerate(items):
-                out[i] += int(d[r])
-        self._segments = []
+                *get_runtime().shard_rows(av, alp, bv, blp)).cpu().numpy()
+            out[rows] += d[:len(rows)]
         return out
+
+
+def _pad_rows(flat: np.ndarray, starts: np.ndarray, lens: np.ndarray,
+              B: int, S: int) -> np.ndarray:
+    """[B, S] uint8 rows: row r holds flat[starts[r]:starts[r] +
+    lens[r]], zeros after it and in the rows past len(starts)."""
+    out = np.zeros((B, S), dtype=np.uint8)
+    padded = np.concatenate([flat, np.zeros(S, dtype=np.uint8)])
+    win = np.lib.stride_tricks.sliding_window_view(padded, S)[starts]
+    out[:len(starts)] = np.where(np.arange(S) < lens[:, None], win, 0)
+    return out
 
 
 def anchored_divergence(cur_codes: np.ndarray, ext_codes: np.ndarray,
@@ -178,29 +222,26 @@ def anchored_divergence(cur_codes: np.ndarray, ext_codes: np.ndarray,
     own = batcher is None
     if own:
         batcher = SegmentBatcher()
-    seg_ids = []
-    spans = []
-    for (c0, e0), (c1, e1) in zip(anchors[:-1], anchors[1:]):
-        a = cur_codes[c0:c1]
-        b = ext_codes[e0:e1]
-        if use_hpc:
-            a, b = hpc_compress(a), hpc_compress(b)
-        spans.append((c1 - c0, e1 - e0))
-        if len(a) == 0 and len(b) == 0:
-            seg_ids.append(None)
-        else:
-            seg_ids.append(batcher.add(a, b))
+    anchors = np.asarray(anchors)
+    c, e = anchors[:, 0], anchors[:, 1]
+    if (np.diff(c) < 0).any() or (np.diff(e) < 0).any():
+        raise ValueError("anchors must ascend in both coordinates")
+    spans = np.stack([np.diff(c), np.diff(e)], axis=1)
+    a_flat, a_lens = _tile_segments(cur_codes, c, use_hpc)
+    b_flat, b_lens = _tile_segments(ext_codes, e, use_hpc)
+    # a segment empty on both sides scores 0 without a pair
+    live = (a_lens > 0) | (b_lens > 0)
+    seg_ids = np.full(len(live), -1, dtype=np.int64)
+    seg_ids[live] = batcher.add_many(a_flat, a_lens[live], b_flat,
+                                     b_lens[live])
 
     def finish(dists: np.ndarray):
-        total = 0
-        per_seg = []
-        for sid in seg_ids:
-            d = 0 if sid is None else int(dists[sid])
-            per_seg.append(d)
-            total += d
+        per_seg = np.zeros(len(seg_ids), dtype=np.int64)
+        per_seg[live] = dists[seg_ids[live]]
+        total = int(per_seg.sum())
         aln_len = max(anchors[-1][0] - anchors[0][0],
                       anchors[-1][1] - anchors[0][1]) + k
-        return total / max(1, aln_len), np.asarray(per_seg), np.asarray(spans)
+        return total / max(1, aln_len), per_seg, spans
 
     if own:
         d = batcher.run()

@@ -14,11 +14,19 @@ substitution at every position,
 
 and the best edit of every parity-active block applies.
 
-Scoring (`score_edits_raw`) launches the hand-written CUDA kernels
-`csrc/polish_score.cu` (K2 backward rows, K3 forward rows + scores) on
-a CUDA tensor and runs the plain version `_score_edits_raw` on a CPU
-tensor.  On the CPU, `polish_bubbles` hands the whole climb to the
-threaded native climber by default, as the JAX package does.
+Scoring (`score_edits_raw`) runs the plain version `_score_edits_raw`
+on a CPU tensor and one of two hand-written CUDA routes on a CUDA
+tensor, chosen by shape alone (`cuda_route`):
+  - K2+K3, `csrc/polish_score.cu`: K2 writes the suffix rows to device
+    memory, K3 reads them back beside the forward rows and scores;
+  - K4, `csrc/polish_fused.cu`: both sweeps in one kernel, the suffix
+    rows kept in a shared-memory stack.  Taken when the caller asks
+    for it (`fused`; `polish_bubbles` reads FLYE_TPU_FUSED, as the JAX
+    package does, off by default) and the stack fits a block's shared
+    memory (`fits_fused`: the buckets up to (Cb, S) = (64, 96) at
+    8 branches).  K4's outputs equal K2+K3's bit for bit.
+On the CPU, `polish_bubbles` hands the whole climb to the threaded
+native climber by default, as the JAX package does.
 
 Float order: the gap-cost prefix sums use `_cumsum`, the 16-wide blocked
 scan XLA's CPU backend applies to `jnp.cumsum`, and branch sums run in
@@ -29,6 +37,8 @@ scores bit for bit and the kernels reproduce the plain version's.
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
 
 import numpy as np
 import torch
@@ -255,12 +265,85 @@ def _score_edits_raw_cuda(cand, cand_len, branches, blen, bmask, subs):
                                 bt)
 
 
-def score_edits_raw(cand, cand_len, branches, blen, bmask, subs):
-    """Raw per-char edit scores of every bubble lane: the K2+K3 kernels
-    for CUDA tensors, the plain version for CPU tensors."""
+# dynamic shared memory one block may use on an H100 (227 KB)
+_SMEM_PER_BLOCK = 232448
+
+
+def _fused_smem_bytes(Cb: int, R: int, S: int) -> int:
+    """K4's dynamic shared memory per block: the suffix-row stack
+    [Cb+1, R, S+1], the prefix rows F and F' [R, S+1] each, the
+    per-branch maxima [R, 9] and the 5x5 table, all f32."""
+    return 4 * ((Cb + 3) * R * (S + 1) + 9 * R + 25)
+
+
+def fits_fused(Cb: int, R: int, S: int) -> bool:
+    """Whether K4's working set fits one block's shared memory (the
+    card's counterpart of the JAX package's `_pick_tile_fused`)."""
+    return _fused_smem_bytes(Cb, R, S) <= _SMEM_PER_BLOCK
+
+
+def cuda_route(fused: bool, Cb: int, R: int, S: int) -> str:
+    """The kernel route `score_edits_raw` takes for CUDA tensors:
+    "polish_fused" (K4) when asked for and it fits, else
+    "polish_score" (K2+K3)."""
+    return ("polish_fused" if fused and fits_fused(Cb, R, S)
+            else "polish_score")
+
+
+def _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
+                       tables):
+    """Launch K4 on the lanes' tables; same outputs as _forward_scores
+    on _backward_rows."""
+    Bb, Cb = cand.shape
+    _, R, S = branches.shape
+    if not fits_fused(Cb, R, S):
+        raise ValueError(f"(Cb, R, S) = {(Cb, R, S)}: K4's stack needs "
+                         f"{_fused_smem_bytes(Cb, R, S)} B of shared "
+                         f"memory, a block has {_SMEM_PER_BLOCK}")
+    dev = cand.device
+    gp, sg, vgap, ds = tables
+    w = bmask.to(torch.float32)
+    total = torch.empty(Bb, dtype=torch.float32, device=dev)
+    del_raw = torch.empty((Cb, Bb), dtype=torch.float32, device=dev)
+    ins4 = torch.empty((4, Cb + 1, Bb), dtype=torch.float32, device=dev)
+    sub4 = torch.empty((4, Cb, Bb), dtype=torch.float32, device=dev)
+    fn = _cuda.lib("polish_fused").polish_fused_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p = _cuda.ptr
+    err = fn(p(cand), p(branches), p(blen), p(sg), p(gp), p(vgap), p(ds),
+             p(cand_len), p(w), p(subs), p(total), p(del_raw), p(ins4),
+             p(sub4), Bb, Cb, R, S, _fused_smem_bytes(Cb, R, S),
+             _cuda.stream_ptr(dev))
+    _cuda.check(err, "polish_fused")
+    _cuda.LAUNCHES["polish_fused"] += 1
+    return total, del_raw, ins4, sub4
+
+
+def _score_edits_raw_fused_cuda(cand, cand_len, branches, blen, bmask,
+                                subs):
+    """K4 (csrc/polish_fused.cu) on the tensors' CUDA device; same
+    contract as _score_edits_raw."""
+    _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs)
+    tables = _tables(cand, cand_len, branches, blen, subs)
+    return _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
+                              tables)
+
+
+def score_edits_raw(cand, cand_len, branches, blen, bmask, subs,
+                    fused: bool = False):
+    """Raw per-char edit scores of every bubble lane: the plain version
+    for CPU tensors (K4's as well as K2+K3's); for CUDA tensors K4 or
+    K2+K3 as `cuda_route` picks."""
     if cand.device.type == "cpu":
         return _score_edits_raw(cand, cand_len, branches, blen, bmask,
                                 subs)
+    Cb = cand.shape[1]
+    _, R, S = branches.shape
+    if cuda_route(fused, Cb, R, S) == "polish_fused":
+        return _score_edits_raw_fused_cuda(cand, cand_len, branches, blen,
+                                           bmask, subs)
     return _score_edits_raw_cuda(cand, cand_len, branches, blen, bmask,
                                  subs)
 
@@ -476,7 +559,8 @@ def _polish_bubbles_native(cand, cand_len, branches, blen, bmask, subs,
 
 def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
                    max_iters: int, block_size: int = 64,
-                   steepest: bool = True, use_kernel=None, device=None):
+                   steepest: bool = True, use_kernel=None, device=None,
+                   fused=None):
     """Hill-climb every bubble to convergence.
 
     Args:
@@ -492,6 +576,8 @@ def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
         the block-parallel schedule on the plain scoring version.
       device: where the block-parallel schedule runs (default: the
         runtime's device).
+      fused: take K4 on a CUDA device where it fits (`cuda_route`);
+        None = whether FLYE_TPU_FUSED is set, as in the JAX package.
 
     Returns numpy (cand [B, Cb], cand_len [B], score [B], iters [B]).
     """
@@ -501,7 +587,10 @@ def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
     if use_kernel is None and device.type == "cpu":
         return _polish_bubbles_native(cand, cand_len, branches, blen,
                                       bmask, subs, max_iters)
-    score_fn = _score_edits_raw if use_kernel is False else score_edits_raw
+    if fused is None:
+        fused = bool(os.environ.get("FLYE_TPU_FUSED"))
+    score_fn = (_score_edits_raw if use_kernel is False
+                else functools.partial(score_edits_raw, fused=fused))
 
     # branch-group tiling: lanes of <= 8 branch rows (score sums over
     # branches decompose exactly; the char argmax follows the group

@@ -431,14 +431,23 @@ class OverlapEngine:
             yield (gids, bucket, score[:len(gids)], parent[:len(gids)])
 
     def _anchors_for(self, ov: Overlap) -> np.ndarray:
-        km = ov.kmer_matches
-        anchors = [(ov.cur_begin, ov.ext_begin)]
-        for c, e in km:
-            if ov.cur_begin < c < ov.cur_end and ov.ext_begin < e < ov.ext_end:
-                if c > anchors[-1][0] and e > anchors[-1][1]:
-                    anchors.append((int(c), int(e)))
-        anchors.append((ov.cur_end, ov.ext_end))
-        return np.asarray(anchors)
+        """The overlap's two ends with the k-mer matches strictly inside
+        it between them, each kept only if it lies past the last kept
+        one in both coordinates."""
+        km = np.asarray(ov.kmer_matches, dtype=np.int64).reshape(-1, 2)
+        c, e = km[:, 0], km[:, 1]
+        inner = km[(ov.cur_begin < c) & (c < ov.cur_end)
+                   & (ov.ext_begin < e) & (e < ov.ext_end)]
+        if not ((np.diff(inner[:, 0]) > 0).all()
+                and (np.diff(inner[:, 1]) > 0).all()):
+            # matches out of order: keep the increasing ones greedily
+            kept = [(ov.cur_begin, ov.ext_begin)]
+            for c, e in inner.tolist():
+                if c > kept[-1][0] and e > kept[-1][1]:
+                    kept.append((c, e))
+            inner = np.asarray(kept[1:], dtype=np.int64).reshape(-1, 2)
+        return np.concatenate([[[ov.cur_begin, ov.ext_begin]], inner,
+                               [[ov.cur_end, ov.ext_end]]]).astype(np.int64)
 
     def _keep_or_trim(self, ov: Overlap, seg_info, detected, div_windows):
         stat_wnd = 10000

@@ -128,3 +128,39 @@ def test_anchored_divergence_equals_jax(use_hpc):
         np.testing.assert_array_equal(got[2], ref[2])
     assert fin_j(jb.run())[0] == ref[0]
     assert 0 < ref[0] < 0.5
+
+
+@pytest.mark.parametrize("use_hpc", [False, True])
+@pytest.mark.parametrize("case", ["repeated_anchor", "past_the_end",
+                                  "one_segment", "giant_gap"])
+def test_anchored_divergence_edges_equal_jax(use_hpc, case):
+    """Empty segments (repeated anchors, both sides empty), anchors past
+    the sequence end, a lone segment and a gap longer than the largest
+    bucket score as in the JAX package, alone and batched together."""
+    rng = np.random.default_rng(31)
+    cur = rng.integers(0, 4, 2500).astype(np.uint8)
+    cur[100:110] = 2                          # homopolymer runs
+    ext = np.concatenate([cur[:1200], rng.integers(0, 4, 40),
+                          cur[1200:]]).astype(np.uint8)
+    anchors = {
+        "repeated_anchor": [[0, 0], [50, 50], [50, 50], [50, 52],
+                            [300, 302], [300, 302], [900, 900]],
+        "past_the_end": [[0, 0], [1000, 1000], [2400, 2440],
+                         [2600, 2580]],
+        "one_segment": [[5, 5], [700, 700]],
+        "giant_gap": [[0, 0], [100, 100], [1300, 1340], [1400, 1440]],
+    }[case]
+    anchors = np.asarray(anchors)
+    ref = jax_anchored(cur, ext, anchors, 17, use_hpc=use_hpc)
+    got = anchored_divergence(cur, ext, anchors, 17, use_hpc=use_hpc)
+    jb, tb = JaxBatcher(), SegmentBatcher()
+    fin_j = [jax_anchored(cur, ext, anchors, 17, use_hpc=use_hpc,
+                          batcher=jb) for _ in range(2)]
+    fin_t = [anchored_divergence(cur, ext, anchors, 17, use_hpc=use_hpc,
+                                 batcher=tb) for _ in range(2)]
+    dj, dt = jb.run(), tb.run()
+    np.testing.assert_array_equal(dt, dj)
+    for out in [got] + [f(dt) for f in fin_t]:
+        assert out[0] == ref[0]
+        np.testing.assert_array_equal(out[1], ref[1])
+        np.testing.assert_array_equal(out[2], ref[2])

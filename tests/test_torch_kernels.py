@@ -8,7 +8,7 @@ no JAX (the tests' conftest imports JAX; skip it there):
 Tests marked `gpu` skip without a CUDA device.  K1 and K5 must match
 bit for bit; K2+K3 rows are compared exactly, raw scores within 1e-3
 (the polisher's acceptance threshold) with the same finiteness, chars
-exactly."""
+exactly; K4's outputs must equal K2+K3's bit for bit."""
 
 import numpy as np
 import pytest
@@ -106,6 +106,33 @@ def test_polish_kernels_match_plain(cuda_device, shape):
         assert torch.equal(fa, b > -1e29)
         assert float((a - b)[fa].abs().max()) < 1e-3
     fk = TP._finish_scores(cand, clen, *raw_k, groups=1)
+    fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
+    assert torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 64, 8, 96), (32, 48, 8, 63),
+                                   (8, 48, 3, 63), (4, 32, 8, 31)])
+def test_fused_kernel_matches_pair_and_plain(cuda_device, shape):
+    """K4 equals K2+K3 bit for bit (the same arithmetic in the same
+    order) and the plain version within 1e-3, chars exact."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in polish_inputs(sum(shape) + 1, shape)]
+    cand, clen = args[0], args[1]
+    before = _cuda.LAUNCHES["polish_fused"]
+    raw_f = TP.score_edits_raw(*args, fused=True)
+    raw_f2 = TP.score_edits_raw(*args, fused=True)
+    assert _cuda.LAUNCHES["polish_fused"] == before + 2
+    raw_pair = TP.score_edits_raw(*args)
+    assert _cuda.LAUNCHES["polish_fused"] == before + 2
+    for a, b, c in zip(raw_f, raw_f2, raw_pair):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    raw_p = TP._score_edits_raw(*args)
+    for a, b in zip(raw_f, raw_p):
+        fa = a > -1e29
+        assert torch.equal(fa, b > -1e29)
+        assert float((a - b)[fa].abs().max()) < 1e-3
+    fk = TP._finish_scores(cand, clen, *raw_f, groups=1)
     fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
     assert torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])
 

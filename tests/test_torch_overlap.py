@@ -71,3 +71,36 @@ def test_overlaps_match_jax(stores, mode):
     out = _as_tuples(teng.get_overlaps_batch(ts, sids, **call))
     assert sum(len(v) for v in ref.values()) > 50
     assert out == ref
+
+
+def _overlap_pair(kmer_matches):
+    from flye_tpu.overlap.structs import Overlap as JaxOverlap
+    from flye_tpu_torch.overlap.structs import Overlap
+    args = (0, 2, 100, 5100, 6000, 40, 5050, 5500)
+    jo, to = JaxOverlap(*args), Overlap(*args)
+    jo.kmer_matches = to.kmer_matches = kmer_matches
+    return jo, to
+
+
+@pytest.mark.parametrize("order", ["ascending", "shuffled", "ties",
+                                   "empty"])
+def test_anchors_for_equals_jax(order):
+    """The overlap's anchors (its ends with the increasing k-mer matches
+    strictly inside), in order and out of order, as the JAX package."""
+    rng = np.random.default_rng(5)
+    c = np.sort(rng.choice(np.arange(0, 5300), 80, replace=False))
+    e = c - 60 + rng.integers(-3, 4, len(c))
+    km = np.stack([c, e], axis=1).astype(np.int32)
+    if order == "shuffled":
+        km = km[rng.permutation(len(km))]
+    elif order == "ties":
+        km[10:14, 1] = km[10, 1]
+        km[20:23, 0] = km[20, 0]
+    elif order == "empty":
+        km = km[:0]
+    jo, to = _overlap_pair(km)
+    ref = JaxEngine._anchors_for(None, jo)
+    got = OverlapEngine._anchors_for(None, to)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+    assert len(got) >= 2

@@ -96,11 +96,10 @@ def test_resume_reproduces_assembly(runs, stage):
                            shallow=False), rel
 
 
-@pytest.mark.parametrize("flag", [["--trestle"], ["--plasmids"],
-                                  ["--polish-target", "x.fa"]])
+@pytest.mark.parametrize("flag", [["--trestle"], ["--plasmids"]])
 def test_unported_options_refused(tmp_path, flag):
-    """Trestle, plasmid recovery and the standalone polisher are not
-    ported: a run asking for one is refused before any work."""
+    """Trestle and plasmid recovery are not ported: a run asking for
+    one is refused before any work."""
     rc = torch_main.main(["--pacbio-raw", str(tmp_path / "none.fa"),
                           "-o", str(tmp_path / "out"), "--device",
                           "cpu"] + flag)
@@ -108,6 +107,21 @@ def test_unported_options_refused(tmp_path, flag):
     with open(tmp_path / "out" / "flye.log") as f:
         assert f"{flag[0]} not yet ported" in f.read()
     assert not os.path.exists(tmp_path / "out" / "params.json")
+
+
+def test_polish_target_byte_identical(runs):
+    """The standalone polisher, two iterations on the run's draft
+    assembly, writes the same polished sequences as `flye_tpu`."""
+    draft = str(runs / "jax" / "00-assembly" / "draft_assembly.fasta")
+    common = ["--polish-target", draft, "--pacbio-raw",
+              str(runs / "reads.fa"), "-i", "2"]
+    assert jax_main.main(common + ["-o", str(runs / "pt_jax")]) == 0
+    assert torch_main.main(common + ["-o", str(runs / "pt_torch"),
+                                     "--device", "cpu"]) == 0
+    for rel in ("polished_1.fasta", "polished_2.fasta"):
+        assert os.path.getsize(runs / "pt_torch" / rel) > 40000, rel
+        assert filecmp.cmp(runs / "pt_jax" / rel, runs / "pt_torch" / rel,
+                           shallow=False), rel
 
 
 def test_cuda_device_without_card_raises():
