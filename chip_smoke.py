@@ -1,14 +1,19 @@
 """Smoke run of flye_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
-                          [--phases chain,polish,lev,main,fused,hifi]
+                          [--phases chain,polish,lev,main,fused,hifi,k1paths]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
   1. build the CUDA kernels (one nvcc per source, in parallel) and the
      native host helpers, from the sources in this checkout;
   2. K1 (chain DP) against its plain version on the card, bit-identical,
-     at the main path's shapes and on edge rows;
+     at five synthetic shapes (three sparse, two at about the paths'
+     density; the paths' own batches are phase 8's), on edge rows and
+     on the row kinds of `flye_tpu_torch.utils.simulate.k1_row_kinds`
+     (sorted by ext only, runs of
+     equal keys, sorted on neither axis, dense, key steps of
+     max_jump - 1 and max_jump), two launches bitwise equal;
   3. K2 + K3 (polish scoring) against their plain version on the card at
      the polisher's bucket shapes: suffix rows equal, raw scores within
      1e-3 with the same finiteness, chars exact, two launches bitwise
@@ -37,7 +42,15 @@ prints no result):
      then the standalone polisher `--polish-target` on that run's
      draft: K1, K4 and K5 must have launched, the assembly must reach
      HIFI_ASSEMBLY_IDENTITY_FLOOR with HIFI_ASSEMBLY_CONTIGS contigs,
-     and polished_1.fasta the draft's identity with its contig count.
+     and polished_1.fasta the draft's identity with its contig count;
+  8. K1 at the paths' own launches: the inputs phases 5 and 7 handed K1
+     (per run and (T, M), the launch with the most admissible pairs),
+     bit-identical to the plain version, two launches bitwise equal,
+     timed beside the plain version and the bound.
+Phases 5 and 7 print a census of their runs: every kernel's launches
+and summed device time by shape (a pair of CUDA events right around
+each launcher call, read after the run's final synchronize; nothing on
+the path synchronises for it), and K1's admissible pairs by shape.
 Each kernel is timed (CUDA events) beside its plain version and its
 bound: the larger of the bytes it must move over the card's memory rate
 and the operations its inputs need over the card's peak rate for their
@@ -45,11 +58,13 @@ type.  It prints the card's name and power limit, a `{"kernels": [...]}`
 line with each kernel's launches on both paths, and last `{"ok": true,
 "device": {...}}`.  `--main-device cpu` runs phase 5 on the CPU instead
 (how the floors were measured); `--phases` runs the build and the named
-phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7).
+phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7, k1paths
+8).
 """
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import json
 import logging
@@ -100,20 +115,35 @@ KERNELS = {
 RAW_PATH_KERNELS = ("chain_dp", "polish_backward", "polish_forward_score",
                     "levenshtein")
 HIFI_PATH_KERNELS = ("chain_dp", "polish_fused", "levenshtein")
+# the wrappers whose inputs the census of a run notes: kernel, module,
+# attribute
+CENSUS_WRAPPERS = (
+    ("chain_dp", "chain", "_chain_dp_cuda"),
+    ("polish_backward", "polish", "_backward_rows_cuda"),
+    ("polish_forward_score", "polish", "_forward_scores_cuda"),
+    ("polish_fused", "polish", "_fused_scores_cuda"),
+    ("levenshtein", "align", "_edit_distance_cuda"),
+)
+CENSUS = {}     # run tag -> census rows (Census.finish)
+CAPTURES = {}   # (run tag, T, M, L) -> K1 inputs (host) and scalars
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): 3.35 TB/s of
 # device memory and 67 TFLOP/s of float32 outside the tensor cores
-# (132 SMs x 128 lanes x 2 x 1.98 GHz).  Integer work runs on the 64
-# int32 lanes of each SM: 132 x 64 x 1.98 GHz = 16.7 Tops/s.
+# (132 SMs x 128 lanes x 2 x 1.98 GHz).  Integer work: an SM dispatches at
+# most 4 warp instructions a clock, 132 x 128 x 1.98 GHz = 33.4 Tops/s.
+# The 64 int32 lanes of an SM are not the limit: nvcc also runs integer
+# adds, shifts and moves on the float32 pipe as IMAD forms, and K1 ran
+# above 64 lanes' rate on a dense batch (PERF.md).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # operations per unit of work, counted from each plain version's
 # arithmetic:
 # K1, per (match, predecessor) pair: two coordinate differences, four
 # range compares and three ands, a min and a clamp (match), |dcur-dext|,
 # a compare, a double, a halve and a select (gap), match - gap, the
-# score add and the running max.
+# score add and the running max.  The pairs are the admissible ones
+# (`k1_admissible_pairs`), the work the inputs need.
 K1_OPS_PER_PAIR = 20
 # K2, per suffix-row cell: match add, gap add, max, minus sg, the
 # running max, plus sg, the row select.
@@ -165,6 +195,8 @@ def cuda_ms(fn, reps):
 # ---------------------------------------------------------------- phase 1
 
 def phase_build():
+    """Build the kernels and the native helpers; print ptxas's registers
+    and shared memory per kernel."""
     from flye_tpu_torch import native
     from flye_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
@@ -186,13 +218,23 @@ def phase_build():
         _cuda.lib(name)
     print(f"[build] kernels + native in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    for name, text in sorted(_cuda.BUILD_LOG.items()):
+        for line in text.splitlines():
+            if "Compiling entry" in line or " Used " in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
     print(f"[build] card: {card_line()}", flush=True)
 
 
 # ---------------------------------------------------------------- phase 2
 
-def make_matches(T, M, rng, noise=60):
-    span = 40 * M   # ~one seed match every 40 bases, as on real reads
+def make_matches(T, M, rng, noise=60, spacing=40):
+    """Synthetic match lists: one seed match every `spacing` bases and
+    nvalid drawn uniformly in [1, M].  At 40 the rows are far sparser
+    than any path's (~37 admissible pairs per match); at 3.75 about
+    400 matches fall within max_jump = 1500, the paths' density.  The
+    captured path batches of phase 8 are the shapes that rank
+    kernels."""
+    span = int(spacing * M)
     cur = np.sort(rng.integers(0, span, size=(T, M)), axis=1)
     ext = cur + 300 + rng.integers(-noise, noise, size=(T, M))
     nvalid = rng.integers(1, M + 1, size=T)
@@ -200,38 +242,111 @@ def make_matches(T, M, rng, noise=60):
             nvalid.astype(np.int32))
 
 
-def phase_chain(report):
+def k1_admissible_pairs(cur, ext, nvalid, max_jump, L):
+    """The (match, predecessor) pairs K1's inputs need: for each live
+    match i of a row, the j in [max(0, i-L), i) with key[i] - key[j] <
+    max_jump on the row's sorted axis (cur if it is non-decreasing over
+    the live matches, else ext if that is), all min(i, L) of them where
+    neither axis is sorted.  numpy on host arrays, in blocks of rows:
+    each block's sorted rows are laid end to end, each shifted past the
+    one before by more than max_jump, so that one np.searchsorted finds
+    every row's first admissible j."""
+    T, M = cur.shape
+    mj = max(int(max_jump), 0)
+    i = np.arange(M)
+    window = i - np.maximum(i - L, 0)
+    big = np.iinfo(np.int32).max
+    total = 0
+    rows = max(1, (1 << 22) // max(1, M))
+    for r0 in range(0, T, rows):
+        live = i < np.clip(nvalid[r0:r0 + rows], 0, M)[:, None]
+        c = np.where(live, cur[r0:r0 + rows], big)
+        e = np.where(live, ext[r0:r0 + rows], big)
+        c_sorted = (c[:, 1:] >= c[:, :-1]).all(axis=1)
+        srt = c_sorted | (e[:, 1:] >= e[:, :-1]).all(axis=1)
+        total += int((live[~srt] * window).sum())
+        if not srt.any():
+            continue
+        key = np.where(c_sorted[:, None], c, e)[srt].astype(np.int64)
+        key -= key[:, :1]
+        span = key[:, -1] + mj + 1
+        key += (np.cumsum(span) - span)[:, None]
+        flat = key.reshape(-1)
+        lo = np.searchsorted(flat, flat - mj, side="right").reshape(
+            key.shape) - (np.arange(len(key)) * M)[:, None]
+        total += int((live[srt] * np.minimum(window, i - lo).clip(0)).sum())
+    return total
+
+
+def k1_bound(T, M, pairs):
+    """K1's bound: cur, ext and nvalid read once, score and parent
+    written once; K1_OPS_PER_PAIR per admissible pair."""
+    return bound(16 * T * M + 4 * T, K1_OPS_PER_PAIR * pairs,
+                 INT32_OPS_PER_S)
+
+
+def k1_check(tag, args, k, max_jump, L):
+    """K1 on one batch of CUDA tensors: bit-identical to the plain
+    version, two launches bitwise equal; raises otherwise.  Returns
+    (parents, the plain version's ms: its one run here, CUDA events)."""
     import torch
     from flye_tpu_torch.ops.chain import _chain_dp_scan, chain_dp
+    s_k, p_k = chain_dp(*args, k, max_jump, L)
+    s_k2, p_k2 = chain_dp(*args, k, max_jump, L)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    s_p, p_p = _chain_dp_scan(*args, k, max_jump, L)
+    e1.record()
+    torch.cuda.synchronize()
+    if not (torch.equal(s_k, s_p) and torch.equal(p_k, p_p)):
+        bad = int((s_k != s_p).sum() + (p_k != p_p).sum())
+        raise AssertionError(f"K1 != plain at {tag}: {bad} entries differ")
+    if not (torch.equal(s_k, s_k2) and torch.equal(p_k, p_k2)):
+        raise AssertionError(f"two K1 launches differ at {tag}")
+    return int((p_k >= 0).sum()), e0.elapsed_time(e1)
+
+
+def phase_chain(report):
+    import torch
+    from flye_tpu_torch.ops.chain import chain_dp
+    from flye_tpu_torch.utils.simulate import K1_ROW_KINDS, k1_row_kinds
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     per_shape = []
-    for T, M in [(2048, 4096), (32, 4096), (8, 16384)]:
-        cur, ext, nv = make_matches(T, M, rng)
+    for T, M, spacing in [(2048, 4096, 40), (32, 4096, 40),
+                          (8, 16384, 40), (128, 4096, 3.75),
+                          (2048, 4096, 3.75)]:
+        cur, ext, nv = make_matches(T, M, rng, spacing=spacing)
+        if spacing < 40:   # the paths' density: full rows
+            nv[:] = M
         nv[0], nv[1], nv[2] = 0, 1, M      # edge rows
         args = [torch.from_numpy(a).to(dev) for a in (cur, ext, nv)]
-        s_k, p_k = chain_dp(*args, 17, 1500, 1024)
-        s_p, p_p = _chain_dp_scan(*args, 17, 1500, 1024)
-        torch.cuda.synchronize()
-        if not (torch.equal(s_k, s_p) and torch.equal(p_k, p_p)):
-            bad = int((s_k != s_p).sum() + (p_k != p_p).sum())
-            raise AssertionError(f"K1 != plain at T={T} M={M}: {bad} "
-                                 "entries differ")
+        n_par, plain_ms = k1_check(f"T={T} M={M}", args, 17, 1500, 1024)
         ms = cuda_ms(lambda: chain_dp(*args, 17, 1500, 1024), 3)
-        plain_ms = cuda_ms(lambda: _chain_dp_scan(*args, 17, 1500, 1024),
-                           1)
-        n_par = int((p_k >= 0).sum())
-        # predecessor pairs: match i of a row links back to min(i, L)
-        i = np.arange(M)
-        pairs = sum(int(np.minimum(i[:n], 1024).sum()) for n in nv)
-        b_ms, b_by = bound(16 * T * M + 4 * T, K1_OPS_PER_PAIR * pairs,
-                           INT32_OPS_PER_S)
-        print(f"[K1] T={T} M={M} L=1024: bit-identical ({n_par} parents);"
-              f" kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
-        per_shape.append({"shape": [T, M, 1024], "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by})
+        pairs = k1_admissible_pairs(cur, ext, nv, 1500, 1024)
+        b_ms, b_by = k1_bound(T, M, pairs)
+        print(f"[K1] synthetic T={T} M={M} L=1024, a match every "
+              f"{spacing} bases: bit-identical ({n_par} "
+              f"parents), launches bitwise equal; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {pairs} admissible pairs)", flush=True)
+        per_shape.append({"shape": [T, M, 1024], "spacing": spacing,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "pairs": pairs})
+    # the row kinds of the window cut, at the paths' lookback and at
+    # lookbacks under one tile of 32 matches; 6 rows take several warps
+    # per row, 600 rows a warp each
+    for T, M, L, max_jump in [(6, 4096, 1024, 1500), (6, 512, 16, 1500),
+                              (6, 512, 48, 50), (600, 512, 48, 50)]:
+        for kind in K1_ROW_KINDS:
+            arrs = k1_row_kinds(kind, T, M, max_jump, rng)
+            args = [torch.from_numpy(a).to(dev) for a in arrs]
+            k1_check(f"{kind} T={T} M={M} L={L} max_jump={max_jump}", args,
+                     17, max_jump, L)
+        print(f"[K1] row kinds {', '.join(K1_ROW_KINDS)} at T={T} M={M} "
+              f"L={L} max_jump={max_jump}: bit-identical, launches "
+              "bitwise equal", flush=True)
     report["chain_dp"] = {"max_abs_err": 0, "per_shape": per_shape}
 
 
@@ -289,28 +404,38 @@ def hill_climb():
     return fixed, B
 
 
-def polish_bounds(B, Cb, R, S, clen, blen, bmask):
-    """Bounds of K2, K3 and K4 at one bucket: bytes are inputs read
-    once and outputs written once (K2's rows bt are K2's output and
-    K3's input; K4 keeps them on chip), operations the live cells
-    (candidate rows up to clen, branch columns up to blen; K3 only on
-    the branches bmask keeps)."""
+def polish_work(B, Cb, R, S, clen, blen, bmask):
+    """(bytes, operations) of K2, K3 and K4 at one bucket: bytes are
+    inputs read once and outputs written once (K2's rows bt are K2's
+    output and K3's input; K4 keeps them on chip), operations the live
+    cells (candidate rows up to clen, branch columns up to blen; K3 only
+    on the branches bmask keeps).  clen [B], blen [B, R] and bmask
+    [B, R] are numpy arrays; where clen or bmask is None (the census
+    does not see both for K2 and K3), the operations that need it count
+    0."""
     rows = B * (Cb + 1) * R * (S + 1) * 4          # bt, f32
     side = B * R * (S + 1) * 4                     # sg or gp
     small = B * Cb + B * R * S + 4 * B * R + 4 * B * Cb + 100
     outs = 4 * B * (1 + Cb + 4 * (Cb + 1) + 4 * Cb)
-    ops2 = K2_OPS_PER_CELL * int((clen[:, None].long()
-                                  * (blen.long() + 1)).sum())
-    ops3 = K3_OPS_PER_CELL * int(((clen[:, None].long() + 1)
-                                  * (blen.long() + 1)
-                                  * bmask.long()).sum())
-    b2 = bound(small + side + 4 * B * (Cb + 1) + 4 * B + rows, ops2,
-               FP32_OPS_PER_S)
-    b3 = bound(small + side + 4 * B * R + rows + outs, ops3,
-               FP32_OPS_PER_S)
-    b4 = bound(small + 2 * side + 4 * B * (Cb + 1) + 4 * B + 4 * B * R
-               + outs, ops2 + ops3, FP32_OPS_PER_S)
-    return b2, b3, b4
+    ops2 = ops3 = 0
+    if clen is not None:
+        c = clen.astype(np.int64)[:, None]
+        cols = blen.astype(np.int64) + 1
+        ops2 = K2_OPS_PER_CELL * int((c * cols).sum())
+        if bmask is not None:
+            ops3 = K3_OPS_PER_CELL * int(((c + 1) * cols * bmask).sum())
+    return ((small + side + 4 * B * (Cb + 1) + 4 * B + rows, ops2),
+            (small + side + 4 * B * R + rows + outs, ops3),
+            (small + 2 * side + 4 * B * (Cb + 1) + 4 * B + 4 * B * R
+             + outs, ops2 + ops3))
+
+
+def polish_bounds(B, Cb, R, S, clen, blen, bmask):
+    """Bounds of K2, K3 and K4 at one bucket (`polish_work`; the length
+    and mask tensors are read back here)."""
+    host = [t.cpu().numpy() for t in (clen, blen, bmask)]
+    return tuple(bound(n_bytes, ops, FP32_OPS_PER_S)
+                 for n_bytes, ops in polish_work(B, Cb, R, S, *host))
 
 
 def phase_polish(report):
@@ -555,31 +680,224 @@ class _StageTimes(logging.Handler):
                 for (name, t), e in zip(self.starts, ends)}
 
 
-def run_cli(tag, argv):
+def launch_inputs(name, args):
+    """From a wrapper's arguments: the launch's shape, the tensors its
+    work depends on, and its scalars.  Shapes: (T, M, L) for K1, (Cb,
+    S, R, lanes) for K2, K3 and K4, (B, S) for K5."""
+    if name == "chain_dp":
+        cur, ext, nvalid, k, max_jump, L = args
+        return ((*cur.shape, int(L)), (cur, ext, nvalid),
+                (int(k), int(max_jump)))
+    if name == "levenshtein":
+        a, alen, _, blen = args
+        return tuple(a.shape), (alen, blen), ()
+    if name == "polish_backward":
+        cand, clen, branches, blen = args[:4]
+        lens = (clen, blen)
+    elif name == "polish_forward_score":
+        cand, branches, blen, bmask = args[:4]
+        lens = (blen, bmask)
+    else:
+        cand, clen, branches, blen, bmask = args[:5]
+        lens = (clen, blen, bmask)
+    B, Cb = cand.shape
+    _, R, S = branches.shape
+    return (Cb, S, R, B), lens, ()
+
+
+def launch_work(name, key, host, scalars):
+    """(bytes, operations, their peak rate) of one launch, from its
+    shape and the host copies of `launch_inputs`' tensors: K1_OPS_PER_
+    PAIR per admissible pair for K1; `polish_work` for K2, K3 (its bytes
+    only: its launcher is not handed cand_len) and K4; K5_OPS_PER_CELL
+    per DP cell for K5."""
+    if name == "chain_dp":
+        T, M, L = key
+        pairs = k1_admissible_pairs(*host, scalars[1], L)
+        return 16 * T * M + 4 * T, K1_OPS_PER_PAIR * pairs, INT32_OPS_PER_S
+    if name == "levenshtein":
+        B, S = key
+        alen, blen = host
+        return (2 * B * S + 12 * B,
+                K5_OPS_PER_CELL * int((alen.astype(np.int64) * blen).sum()),
+                INT32_OPS_PER_S)
+    Cb, S, R, B = key
+    if name == "polish_backward":
+        lens, pick = (*host, None), 0
+    elif name == "polish_forward_score":
+        lens, pick = (None, *host), 1
+    else:
+        lens, pick = host, 2
+    n_bytes, ops = polish_work(B, Cb, R, S, *lens)[pick]
+    return n_bytes, ops, FP32_OPS_PER_S
+
+
+def shape_text(name, key):
+    if name == "chain_dp":
+        return "(T,M,L)=({},{},{})".format(*key)
+    if name == "levenshtein":
+        return "[B,S]=[{},{}]".format(*key)
+    return "(Cb,S,R)=({},{},{}) x{}".format(*key)
+
+
+class Census:
+    """Every kernel launch of one run, by kernel and shape.
+
+    During the run: `_cuda.launch` brackets each launcher call with a
+    pair of CUDA events on its stream (`_cuda.ON_LAUNCH`), and each
+    wrapper of CENSUS_WRAPPERS is wrapped to note the launch's shape
+    and copy the tensors its work depends on (`launch_inputs`: K1's
+    cur, ext and nvalid, the others' lengths and masks) into pinned host
+    memory, on a stream of the census's own that waits for the path's
+    stream.  Nothing here synchronises, reads the card, allocates device
+    memory or queues work on the path's stream; the host seconds the
+    census spends inside the run are printed.
+
+    After the run's synchronize, `finish` reads the events, counts each
+    launch's work from the host copies (`launch_work`), prints the
+    census and keeps, per K1 shape, the inputs of the launch with the
+    most admissible pairs for phase 8."""
+
+    def __init__(self, tag):
+        self.tag = tag
+        # (kernel, shape, (start, end), host copies, scalars)
+        self.launches = []
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.saved = []
+        self.stream = None
+        self.host_s = 0.0
+        self.host_bytes = 0
+
+    def __enter__(self):
+        import importlib
+        import torch
+        from flye_tpu_torch.ops import _cuda
+        self.stream = torch.cuda.Stream()
+        for name, mod, attr in CENSUS_WRAPPERS:
+            module = importlib.import_module(f"flye_tpu_torch.ops.{mod}")
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+            setattr(module, attr, self._wrap(name, fn))
+        _cuda.ON_LAUNCH = self._timed
+        return self
+
+    def __exit__(self, *exc):
+        from flye_tpu_torch.ops import _cuda
+        _cuda.ON_LAUNCH = None
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+        self.saved = []
+
+    def _timed(self, name, start, end):
+        self.local.events = (start, end)
+
+    def _wrap(self, name, fn):
+        def launch(*args):
+            self.local.events = None
+            out = fn(*args)
+            t0 = time.perf_counter()
+            key, tensors, scalars = launch_inputs(name, args)
+            host = self._to_host(tensors)
+            with self.lock:
+                self.launches.append((name, key, self.local.events, host,
+                                      scalars))
+                self.host_s += time.perf_counter() - t0
+            return out
+        return launch
+
+    def _to_host(self, tensors):
+        """Pinned host copies of the tensors, made on the census's stream
+        once the path's stream has reached this point."""
+        import torch
+        self.stream.wait_stream(torch.cuda.current_stream(tensors[0].device))
+        host = []
+        with torch.cuda.stream(self.stream):
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(self.stream)
+                host.append(h)
+                self.host_bytes += h.numel() * h.element_size()
+        return host
+
+    def finish(self):
+        """After the run's synchronize: print the census, keep its rows
+        in CENSUS and, per K1 shape, the inputs of the launch with the
+        most admissible pairs in CAPTURES."""
+        print(f"[census {self.tag}] {len(self.launches)} launches noted in "
+              f"{self.host_s:.3f} s of host time inside the run, "
+              f"{self.host_bytes / 2**30:.2f} GiB of pinned host copies",
+              flush=True)
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            work = list(pool.map(
+                lambda x: launch_work(x[0], x[1], [h.numpy() for h in x[3]],
+                                      x[4]), self.launches))
+        rows = {}
+        best = {}    # (T, M, L) -> (pairs, host copies, scalars)
+        for (name, key, (e0, e1), host, scalars), (n_bytes, ops, rate) in zip(
+                self.launches, work):
+            b_ms, b_by = bound(n_bytes, ops, rate)
+            r = rows.setdefault((name, key), {
+                "kernel": name, "shape": list(key), "launches": 0,
+                "ms": 0.0, "bound_ms": 0.0, "by": collections.Counter()})
+            r["launches"] += 1
+            r["ms"] += e0.elapsed_time(e1)
+            r["bound_ms"] += b_ms
+            r["by"][b_by] += 1
+            if name == "chain_dp":
+                pairs = ops // K1_OPS_PER_PAIR
+                r["pairs"] = r.get("pairs", 0) + pairs
+                if pairs > best.get(key, (-1,))[0]:
+                    best[key] = (pairs, [h.numpy() for h in host], scalars)
+        self.launches = []
+        order = {name: n for n, (name, _, _) in enumerate(CENSUS_WRAPPERS)}
+        out = []
+        for (name, key), r in sorted(
+                rows.items(), key=lambda kv: (order[kv[0][0]], kv[0][1])):
+            r["bound_by"] = r.pop("by").most_common(1)[0][0]
+            text = (f"{r['launches']} launches, {r['ms']:.3f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            if name == "chain_dp":
+                text += f", {r['pairs']} admissible pairs"
+            out.append(r)
+            print(f"[census {self.tag}] {name} {shape_text(name, key)}: "
+                  f"{text}", flush=True)
+        for name, _, _ in CENSUS_WRAPPERS:
+            mine = [r for r in out if r["kernel"] == name]
+            if mine:
+                ms = sum(r["ms"] for r in mine)
+                b_ms = sum(r["bound_ms"] for r in mine)
+                print(f"[census {self.tag}] {name} in all: "
+                      f"{sum(r['launches'] for r in mine)} launches, "
+                      f"{ms:.3f} ms, bound {b_ms:.3f} ms, "
+                      f"{ms - b_ms:.3f} ms above it", flush=True)
+        CENSUS[self.tag] = out
+        for (T, M, L), (pairs, (cur, ext, nv), (k, mj)) in best.items():
+            CAPTURES[(self.tag, T, M, L)] = {
+                "cur": cur, "ext": ext, "nvalid": nv, "k": k,
+                "max_jump": mj, "pairs": pairs}
+
+
+def run_cli(tag, argv, census=True):
     """One `flye_tpu_torch.main` run; raises unless it exits 0.  Prints
-    its step times; returns (wall s, seconds per stage, the [B, S]
-    shapes it handed K5).  Launch counts are the caller's to reset."""
+    its step times and, with `census`, the census of its launches.
+    Returns (wall s, seconds per stage).  Launch counts are the caller's
+    to reset."""
     import torch
     from flye_tpu_torch import main as flye_main
-    from flye_tpu_torch.ops import align
 
     stages = _StageTimes()
     # on the root logger: the CLI replaces the package logger's handlers
     logging.getLogger().addHandler(stages)
-    lev_shapes = []
-    lev_launch = align._edit_distance_cuda
-
-    def recorded(a, *rest):
-        lev_shapes.append(tuple(a.shape))
-        return lev_launch(a, *rest)
-    align._edit_distance_cuda = recorded
+    run = Census(tag) if census else contextlib.nullcontext()
     t0 = time.perf_counter()
     try:
-        rc = flye_main.main(argv)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        with run:
+            rc = flye_main.main(argv)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
     finally:
-        align._edit_distance_cuda = lev_launch
         logging.getLogger().removeHandler(stages)
     wall = time.perf_counter() - t0
     jobs = stages.job_seconds(time.time())
@@ -587,7 +905,9 @@ def run_cli(tag, argv):
         raise RuntimeError(f"{tag} run exited with {rc}")
     for line in stages.lines:
         print(f"[{tag}]   {line}", flush=True)
-    return wall, jobs, lev_shapes
+    if census:
+        run.finish()
+    return wall, jobs
 
 
 def simulate(tag, glen, **read_args):
@@ -651,16 +971,14 @@ def phase_main(genome_mb, device):
     out = os.path.join(RUN_DIR, "out")
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    wall, jobs, lev_shapes = run_cli(
+    wall, jobs = run_cli(
         "main", ["--pacbio-raw", reads_path, "-o", out, "-g", f"{glen}",
                  "--device", device])
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"[main] stage seconds {jobs}", flush=True)
     print(f"[main] wall {wall:.1f} s to assembly.fasta, device peak "
-          f"memory {peak / 2**30:.2f} GiB, launches {launches}, K5 "
-          f"shapes [B, S] {sorted(collections.Counter(lev_shapes).items())}",
-          flush=True)
+          f"memory {peak / 2**30:.2f} GiB, launches {launches}", flush=True)
     if not native.loaded():
         raise AssertionError("native helpers were not loaded")
     if len(jobs) != 7:
@@ -825,13 +1143,14 @@ def phase_hifi(plain=False, keep=None):
     _cuda.reset_launches()
     try:
         with plain_versions() if plain else contextlib.nullcontext():
-            wall, jobs, lev_shapes = run_cli(
+            wall, jobs = run_cli(
                 "hifi", ["--pacbio-hifi", reads_path, "-o", out, "-g",
-                         f"{glen}", "--device", "cuda"])
+                         f"{glen}", "--device", "cuda"], census=not plain)
             asm_launches = dict(_cuda.LAUNCHES)
-            wall_pt, _, lev_pt = run_cli(
+            wall_pt, _ = run_cli(
                 "hifi-pt", ["--polish-target", draft, "--pacbio-hifi",
-                            reads_path, "-o", out_pt, "--device", "cuda"])
+                            reads_path, "-o", out_pt, "--device", "cuda"],
+                census=not plain)
             launches = dict(_cuda.LAUNCHES)
     finally:
         os.environ.pop("FLYE_TPU_FUSED", None)
@@ -839,11 +1158,9 @@ def phase_hifi(plain=False, keep=None):
     pt_launches = {k: launches[k] - asm_launches[k] for k in launches}
     print(f"[hifi] stage seconds {jobs}", flush=True)
     print(f"[hifi] wall {wall:.1f} s to assembly.fasta, launches "
-          f"{asm_launches}, K5 shapes [B, S] "
-          f"{sorted(collections.Counter(lev_shapes).items())}", flush=True)
+          f"{asm_launches}", flush=True)
     print(f"[hifi] polish-target wall {wall_pt:.1f} s, launches "
-          f"{pt_launches}, K5 shapes [B, S] "
-          f"{sorted(collections.Counter(lev_pt).items())}", flush=True)
+          f"{pt_launches}", flush=True)
     print(f"[hifi] device peak memory {peak / 2**30:.2f} GiB over both "
           f"runs, launches {launches}", flush=True)
     if len(jobs) != 7:
@@ -874,7 +1191,54 @@ def phase_hifi(plain=False, keep=None):
     return launches
 
 
-PHASES = ("chain", "polish", "lev", "main", "fused", "hifi")
+# ---------------------------------------------------------------- phase 8
+
+def phase_k1_paths(report):
+    """K1 on the inputs the paths handed it (CAPTURES), per run and
+    (T, M, L): checked and timed as in phase 2."""
+    import torch
+    from flye_tpu_torch.ops.chain import chain_dp
+    if not CAPTURES:
+        raise AssertionError("no K1 launch was captured: run phase 5 or 7 "
+                             "first")
+    dev = torch.device("cuda")
+    per_shape = report["chain_dp"]["per_shape"] if "chain_dp" in report \
+        else []
+    done = {}   # (T, M, L) -> [(tag, inputs)] checked so far
+    for (tag, T, M, L), cap in sorted(CAPTURES.items(),
+                                      key=lambda kv: kv[0][1:]):
+        inputs = tuple(cap[a] for a in ("cur", "ext", "nvalid", "k",
+                                        "max_jump"))
+        same = next((t for t, x in done.get((T, M, L), [])
+                     if all(np.array_equal(a, b)
+                            for a, b in zip(x, inputs))), None)
+        if same is not None:
+            print(f"[K1] {tag} path batch T={T} M={M} L={L}: the same "
+                  f"inputs as the {same} path's", flush=True)
+            continue
+        args = [torch.from_numpy(a).to(dev) for a in inputs[:3]]
+        k, mj = cap["k"], cap["max_jump"]
+        n_par, plain_ms = k1_check(f"{tag} T={T} M={M}", args, k, mj, L)
+        ms = cuda_ms(lambda: chain_dp(*args, k, mj, L), 3)
+        b_ms, b_by = k1_bound(T, M, cap["pairs"])
+        valid = int(np.clip(cap["nvalid"], 0, M).sum())
+        print(f"[K1] {tag} path batch T={T} M={M} L={L} ({valid} matches, "
+              f"{cap['pairs']} admissible pairs): bit-identical ({n_par} "
+              f"parents), launches bitwise equal; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        per_shape.append({"shape": [T, M, L], "path": tag, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "pairs": cap["pairs"],
+                          "matches": valid})
+        done.setdefault((T, M, L), []).append((tag, inputs))
+        del args
+        torch.cuda.empty_cache()
+    report.setdefault("chain_dp", {"max_abs_err": 0,
+                                   "per_shape": per_shape})
+
+
+PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "k1paths")
 
 
 def main():
@@ -915,7 +1279,8 @@ def main():
                                                   args.main_device)),
                       ("fused", lambda: phase_fused(report)),
                       ("hifi", lambda: phase_hifi(args.hifi_plain,
-                                                  args.keep_runs))):
+                                                  args.keep_runs)),
+                      ("k1paths", lambda: phase_k1_paths(report))):
         if name in phases:
             t0 = time.perf_counter()
             out = run()
@@ -926,12 +1291,15 @@ def main():
 
     # the first shape of each kernel heads its entry; no single PyTorch
     # call computes any of these functions, so library_ms is null;
-    # launches are summed over the driven paths, each path's beside
+    # launches are summed over the driven paths, each path's beside,
+    # and each run's census rows of the kernel follow
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = report.get(name)
         head = r["per_shape"][0] if r else {}
         by_path = {p: counts[name] for p, counts in paths.items()}
+        census = {tag: [row for row in rows if row["kernel"] == name]
+                  for tag, rows in CENSUS.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -940,7 +1308,7 @@ def main():
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"),
             "bound_by": head.get("bound_by"), "library_ms": None,
-            "per_shape": r["per_shape"] if r else []})
+            "per_shape": r["per_shape"] if r else [], "census": census})
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,13 +3,14 @@
 Each source compiles with nvcc into its own plain-C shared library
 (`extern "C"` launchers, no PyTorch headers) in the gitignored build
 directory, and loads with ctypes.  Pointers and the stream pass as
-`c_void_p`; every launcher returns `cudaGetLastError()` after its
-launch, and `check()` raises on a nonzero code.  Nothing here runs at
+`c_void_p`; every launcher takes the stream last and returns
+`cudaGetLastError()` after its launch.  Wrappers launch through
+`launch()`, which raises on a nonzero code.  Nothing here runs at
 import: the first launch builds, so the CPU-only tests never need nvcc.
 
-`LAUNCHES` counts kernel launches by name.  Each wrapper adds one right
-after it launches its kernel, and nowhere else, so a run can show that
-its main path went through the kernels.
+`LAUNCHES` counts kernel launches by name.  `launch()` adds one right
+after the launcher returns, and nothing else does, so a run can show
+that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -27,12 +28,22 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # kernel name -> launches; reset with reset_launches()
 LAUNCHES: Dict[str, int] = {"chain_dp": 0, "polish_backward": 0,
                             "polish_forward_score": 0, "polish_fused": 0,
                             "levenshtein": 0}
+
+# A harness that times the launches sets this to a callable: each launch
+# is then bracketed by two CUDA events recorded on its stream just before
+# and just after the launcher call, handed over as ON_LAUNCH(name, start,
+# end) on the launching thread.  None: no events.
+ON_LAUNCH: Optional[Callable] = None
+
+# source name -> nvcc's output of its last build here (ptxas's registers,
+# shared memory and spills per kernel)
+BUILD_LOG: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -80,9 +91,11 @@ def build(names: Iterable[str]) -> None:
     errors = []
     for name, tmp, p in procs:
         out, _ = p.communicate(timeout=900)
+        text = out.decode(errors="replace")
         if p.returncode != 0:
-            errors.append(f"{name}.cu:\n{out.decode(errors='replace')}")
+            errors.append(f"{name}.cu:\n{text}")
         else:
+            BUILD_LOG[name] = text
             os.replace(tmp, _so_path(name))
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
@@ -102,8 +115,21 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Launch kernel `name` with fn(*args, stream), on the current stream
+    of `device`; raise on its error code, count it in LAUNCHES."""
+    stream = torch.cuda.current_stream(device)
+    hook = ON_LAUNCH
+    if hook is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+    err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
+    if hook is not None:
+        end.record(stream)
+        hook(name, start, end)
+    check(err, name)
+    LAUNCHES[name] += 1
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

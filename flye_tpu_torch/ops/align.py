@@ -99,10 +99,8 @@ def _edit_distance_cuda(a: torch.Tensor, alen: torch.Tensor,
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(_cuda.ptr(a), _cuda.ptr(alen), _cuda.ptr(b), _cuda.ptr(blen),
-             _cuda.ptr(out), B, S, _cuda.stream_ptr(dev))
-    _cuda.check(err, "levenshtein")
-    _cuda.LAUNCHES["levenshtein"] += 1
+    _cuda.launch("levenshtein", fn, dev, _cuda.ptr(a), _cuda.ptr(alen),
+                 _cuda.ptr(b), _cuda.ptr(blen), _cuda.ptr(out), B, S)
     return out
 
 

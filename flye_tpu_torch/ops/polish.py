@@ -222,11 +222,9 @@ def _backward_rows_cuda(cand, cand_len, branches, blen, subs, tables):
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = _cuda.ptr
-    err = fn(p(cand), p(branches), p(blen), p(sg), p(vgap), p(ds),
-             p(cand_len), p(subs), p(bt), Bb, Cb, R, S,
-             _cuda.stream_ptr(cand.device))
-    _cuda.check(err, "polish_backward")
-    _cuda.LAUNCHES["polish_backward"] += 1
+    _cuda.launch("polish_backward", fn, cand.device, p(cand), p(branches),
+                 p(blen), p(sg), p(vgap), p(ds), p(cand_len), p(subs), p(bt),
+                 Bb, Cb, R, S)
     return bt
 
 
@@ -247,11 +245,9 @@ def _forward_scores_cuda(cand, branches, blen, bmask, subs, tables, bt):
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = _cuda.ptr
-    err = fn(p(cand), p(branches), p(blen), p(gp), p(bt), p(vgap), p(w),
-             p(subs), p(total), p(del_raw), p(ins4), p(sub4), Bb, Cb, R,
-             S, _cuda.stream_ptr(dev))
-    _cuda.check(err, "polish_forward_score")
-    _cuda.LAUNCHES["polish_forward_score"] += 1
+    _cuda.launch("polish_forward_score", fn, dev, p(cand), p(branches),
+                 p(blen), p(gp), p(bt), p(vgap), p(w), p(subs), p(total),
+                 p(del_raw), p(ins4), p(sub4), Bb, Cb, R, S)
     return total, del_raw, ins4, sub4
 
 
@@ -312,12 +308,10 @@ def _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = _cuda.ptr
-    err = fn(p(cand), p(branches), p(blen), p(sg), p(gp), p(vgap), p(ds),
-             p(cand_len), p(w), p(subs), p(total), p(del_raw), p(ins4),
-             p(sub4), Bb, Cb, R, S, _fused_smem_bytes(Cb, R, S),
-             _cuda.stream_ptr(dev))
-    _cuda.check(err, "polish_fused")
-    _cuda.LAUNCHES["polish_fused"] += 1
+    _cuda.launch("polish_fused", fn, dev, p(cand), p(branches), p(blen),
+                 p(sg), p(gp), p(vgap), p(ds), p(cand_len), p(w), p(subs),
+                 p(total), p(del_raw), p(ins4), p(sub4), Bb, Cb, R, S,
+                 _fused_smem_bytes(Cb, R, S))
     return total, del_raw, ins4, sub4
 
 

@@ -4,7 +4,8 @@ The reference ships real PacBio read sets for its toy E2E test
 (reference: flye/tests/test_toy.py:21-32); those blobs are not available
 here, so tests synthesize reads from the bundled E. coli 500kb reference
 sequence with a configurable error profile (insertion-dominated, matching
-PacBio CLR / ONT characteristics).
+PacBio CLR / ONT characteristics).  `k1_row_kinds` makes synthetic match
+lists for the chain DP (the kernel tests and `chip_smoke.py`).
 """
 
 from __future__ import annotations
@@ -146,3 +147,59 @@ def random_genome(length: int, seed: int = 1,
                 at = int(rng.integers(0, length - rep_len))
                 g[at:at + rep_len] = unit
     return g
+
+
+K1_ROW_KINDS = ("ext_sorted", "equal_runs", "unsorted", "dense",
+                "jump_edges")
+
+
+def k1_row_kinds(kind: str, T: int, M: int, max_jump: int,
+                 rng: np.random.Generator
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """T match lists of one kind the chain DP kernel's window cut must
+    handle, as int32 (cur, ext, nvalid):
+      ext_sorted  ext non-decreasing, cur not (the engine's order when
+                  the other read is longer);
+      equal_runs  cur non-decreasing with runs of equal keys (dcur = 0),
+                  ext equal within a run on every other row;
+      unsorted    neither axis sorted (the full lookback is scanned);
+      dense       ~2 matches per base: the admissible window is capped
+                  by the lookback, not by max_jump;
+      jump_edges  key steps of 1, 2, max_jump // 2, max_jump - 1 and
+                  max_jump, the other axis on the same diagonal or one
+                  off; the steps on cur in even rows, on ext in odd
+                  rows (cur not sorted there).
+    Rows past the first have nvalid drawn in [M // 2, M]."""
+    noise = rng.integers(-60, 60, size=(T, M))
+    if kind == "ext_sorted":
+        ext = np.sort(rng.integers(0, 40 * M, size=(T, M)), axis=1)
+        cur = ext - 300 + noise
+        cur[:, 0] = cur[:, 1] + 1
+    elif kind == "equal_runs":
+        step = rng.integers(1, 120, size=(T, M))
+        cur = np.cumsum(np.where(rng.random((T, M)) < 0.6, 0, step), axis=1)
+        ext = cur + 300 + noise * (np.arange(T) % 2)[:, None]
+    elif kind == "unsorted":
+        cur = np.sort(rng.integers(0, 40 * M, size=(T, M)), axis=1)
+        ext = cur + 300 + noise
+        perm = np.argsort(rng.random((T, M)), axis=1)
+        cur = np.take_along_axis(cur, perm, 1)
+        ext = np.take_along_axis(ext, perm, 1)
+    elif kind == "dense":
+        cur = np.sort(rng.integers(0, max(1, M // 2), size=(T, M)), axis=1)
+        ext = cur + 300 + rng.integers(-3, 4, size=(T, M))
+    elif kind == "jump_edges":
+        steps = np.array([1, 2, max_jump // 2, max_jump - 1, max_jump])
+        a = np.cumsum(rng.choice(steps, size=(T, M)), axis=1)
+        b = a + 300 + rng.integers(0, 2, size=(T, M))
+        # odd rows: the steps on ext, cur not sorted
+        odd = (np.arange(T) % 2 == 1)[:, None]
+        cur = np.where(odd, b - 600, a)
+        ext = np.where(odd, a, b)
+        cur[1::2, 0] = cur[1::2, 1] + 1
+    else:
+        raise ValueError(f"unknown row kind {kind!r}")
+    nvalid = np.full(T, M)
+    nvalid[1:] = rng.integers(M // 2, M + 1, size=T - 1)
+    return (cur.astype(np.int32), ext.astype(np.int32),
+            nvalid.astype(np.int32))

@@ -11,6 +11,7 @@ from flye_tpu_torch.ops import _cuda
 from flye_tpu_torch.ops.chain import (backtrack_chains, chain_dp,
                                       chain_dp_multi)
 from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
+from flye_tpu_torch.utils.simulate import K1_ROW_KINDS, k1_row_kinds
 
 
 @pytest.fixture(autouse=True)
@@ -41,6 +42,22 @@ def test_chain_dp_matches_jax(T, M, lookback):
     rng = np.random.default_rng(T * 1000 + M)
     (s_ref, p_ref), (s, p) = _both(*make_matches(T, M, rng), 15, 1500,
                                    lookback)
+    np.testing.assert_array_equal(s, s_ref)
+    np.testing.assert_array_equal(p, p_ref)
+
+
+@pytest.mark.parametrize("M,lookback,max_jump", [(512, 64, 1500),
+                                                  (384, 16, 50)])
+@pytest.mark.parametrize("kind", K1_ROW_KINDS)
+def test_chain_dp_row_kinds(kind, M, lookback, max_jump):
+    """The rows K1's window cut must handle (sorted by ext only, runs of
+    equal keys, sorted on neither axis, dense rows capped by the
+    lookback, key steps of exactly max_jump - 1 and max_jump)."""
+    rng = np.random.default_rng(M + lookback)
+    cur, ext, nvalid = k1_row_kinds(kind, 6, M, max_jump, rng)
+    (s_ref, p_ref), (s, p) = _both(cur, ext, nvalid, 17, max_jump,
+                                   lookback)
+    assert (p_ref >= 0).any()
     np.testing.assert_array_equal(s, s_ref)
     np.testing.assert_array_equal(p, p_ref)
 

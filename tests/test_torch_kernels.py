@@ -19,6 +19,7 @@ import flye_tpu_torch.ops.polish as TP
 from flye_tpu_torch.ops import _cuda
 from flye_tpu_torch.ops.chain import _chain_dp_scan, chain_dp
 from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
+from flye_tpu_torch.utils.simulate import K1_ROW_KINDS, k1_row_kinds
 
 
 @pytest.fixture(autouse=True)
@@ -69,21 +70,36 @@ def test_require_rejects_bad_inputs():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,M,L", [(32, 4096, 1024), (8, 300, 1024),
-                                   (5, 200, 48), (3, 64, 64)])
-def test_chain_kernel_matches_plain(cuda_device, T, M, L):
+@pytest.mark.parametrize("kind,T,M,L,max_jump", [
+    pytest.param("synthetic", *shape, 1500, id="-".join(map(str, shape)))
+    for shape in [(32, 4096, 1024), (8, 300, 1024), (5, 200, 48),
+                  (3, 64, 64)]] + [
+    pytest.param(kind, T, M, L, mj, id=f"{kind}-{T}-{M}-{L}-{mj}")
+    for kind in K1_ROW_KINDS
+    for T, M, L, mj in [(6, 4096, 1024, 1500), (6, 512, 16, 50),
+                        (600, 512, 48, 1500)]])
+def test_chain_kernel_matches_plain(cuda_device, kind, T, M, L, max_jump):
+    """Synthetic rows (with an empty and a one-match row) and the row
+    kinds of the window cut, in both of K1's modes (a few rows: several
+    warps per row; 600 rows: a warp per row): bit-identical, two
+    launches bitwise equal."""
     rng = np.random.default_rng(T + M)
-    cur, ext, nvalid = make_matches(T, M, rng)
-    nvalid[0] = 0
-    nvalid[1] = 1
+    if kind == "synthetic":
+        cur, ext, nvalid = make_matches(T, M, rng)
+        nvalid[0] = 0
+        nvalid[1] = 1
+    else:
+        cur, ext, nvalid = k1_row_kinds(kind, T, M, max_jump, rng)
     args = [torch.from_numpy(a).to(cuda_device)
             for a in (cur, ext, nvalid)]
     before = _cuda.LAUNCHES["chain_dp"]
-    s_k, p_k = chain_dp(*args, 15, 1500, L)
+    s_k, p_k = chain_dp(*args, 15, max_jump, L)
     assert _cuda.LAUNCHES["chain_dp"] == before + 1
-    s_p, p_p = _chain_dp_scan(*args, 15, 1500, min(L, M))
+    s_k2, p_k2 = chain_dp(*args, 15, max_jump, L)
+    s_p, p_p = _chain_dp_scan(*args, 15, max_jump, min(L, M))
     assert torch.equal(s_k, s_p)
     assert torch.equal(p_k, p_p)
+    assert torch.equal(s_k, s_k2) and torch.equal(p_k, p_k2)
 
 
 @pytest.mark.gpu
