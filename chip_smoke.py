@@ -1,12 +1,16 @@
 """Smoke run of flye_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
-                          [--phases chain,polish,lev,main,fused,hifi,k1paths]
+                          [--phases chain,polish,lev,main,fused,hifi,
+                                    k1paths,k23paths]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
   1. build the CUDA kernels (one nvcc per source, in parallel) and the
-     native host helpers, from the sources in this checkout;
+     native host helpers, from the sources in this checkout; print
+     ptxas's registers and spills per kernel and, for K2 and K3 at the
+     phase 3 buckets, registers, shared memory and resident blocks per
+     SM with the resource that bounds them;
   2. K1 (chain DP) against its plain version on the card, bit-identical,
      at five synthetic shapes (three sparse, two at about the paths'
      density; the paths' own batches are phase 8's), on edge rows and
@@ -15,10 +19,11 @@ prints no result):
      equal keys, sorted on neither axis, dense, key steps of
      max_jump - 1 and max_jump), two launches bitwise equal;
   3. K2 + K3 (polish scoring) against their plain version on the card at
-     the polisher's bucket shapes: suffix rows equal, raw scores within
-     1e-3 with the same finiteness, chars exact, two launches bitwise
-     equal, and a synthetic hill climb converging to the same
-     candidates;
+     the polisher's bucket shapes: K2's suffix rows equal on their live
+     region (rows below cand_len, columns up to blen; the rest of its
+     output is undefined), the four raw score outputs bit for bit, chars
+     exact, two launches bitwise equal, and a synthetic hill climb
+     converging to the same candidates;
   4. K5 (Levenshtein) against its plain version on the card at the raw
      path's [4096, 64], the segment buckets S = 16/64/256/1024 and the
      HiFi path's largest batches [2^23, 64] and [2^23, 16],
@@ -43,14 +48,23 @@ prints no result):
      draft: K1, K4 and K5 must have launched, the assembly must reach
      HIFI_ASSEMBLY_IDENTITY_FLOOR with HIFI_ASSEMBLY_CONTIGS contigs,
      and polished_1.fasta the draft's identity with its contig count;
+     then a copy of the HiFi run resumed from consensus with
+     FLYE_TPU_FUSED unset (the default route: K2+K3 take K4's buckets)
+     must launch K2 and K3 and not K4 and write HIFI_OUTPUTS byte for
+     byte as the fused run;
   8. K1 at the paths' own launches: the inputs phases 5 and 7 handed K1
      (per run and (T, M), the launch with the most admissible pairs),
      bit-identical to the plain version, two launches bitwise equal,
-     timed beside the plain version and the bound.
+     timed beside the plain version and the bound;
+  9. K2 + K3 at the raw path's own launches: per (Cb, S, R, lanes) the
+     inputs of the launch pair with the most live cells, held bit for
+     bit against the plain version (all four outputs; K2's rows on
+     their live region), timed beside the plain version and the bounds.
 Phases 5 and 7 print a census of their runs: every kernel's launches
 and summed device time by shape (a pair of CUDA events right around
 each launcher call, read after the run's final synchronize; nothing on
-the path synchronises for it), and K1's admissible pairs by shape.
+the path synchronises for it), K1's admissible pairs by shape, and
+K2+K3 per launch pair against the pair's own bound.
 Each kernel is timed (CUDA events) beside its plain version and its
 bound: the larger of the bytes it must move over the card's memory rate
 and the operations its inputs need over the card's peak rate for their
@@ -59,7 +73,7 @@ line with each kernel's launches on both paths, and last `{"ok": true,
 "device": {...}}`.  `--main-device cpu` runs phase 5 on the CPU instead
 (how the floors were measured); `--phases` runs the build and the named
 phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7, k1paths
-8).
+8, k23paths 9).
 """
 
 import argparse
@@ -124,8 +138,28 @@ CENSUS_WRAPPERS = (
     ("polish_fused", "polish", "_fused_scores_cuda"),
     ("levenshtein", "align", "_edit_distance_cuda"),
 )
+# every file of a HiFi run's output directory but its log, params.json
+# and the draft (tests/test_torch_hifi.py's list)
+HIFI_OUTPUTS = ("10-consensus/consensus.fasta",
+                "20-repeat/repeat_graph_dump",
+                "20-repeat/read_alignment_dump",
+                "30-contigger/contigs.fasta",
+                "30-contigger/contigs_stats.txt",
+                "30-contigger/graph_final.gfa",
+                "30-contigger/graph_final.gv",
+                "30-contigger/graph_final.fasta",
+                "30-contigger/scaffolds_links.txt",
+                "40-polishing/filtered_contigs.fasta",
+                "40-polishing/polished_stats.txt",
+                "40-polishing/polished_edges.gfa",
+                "assembly.fasta", "assembly_graph.gfa", "assembly_graph.gv",
+                "assembly_info.txt")
 CENSUS = {}     # run tag -> census rows (Census.finish)
 CAPTURES = {}   # (run tag, T, M, L) -> K1 inputs (host) and scalars
+# (Cb, S, R, lanes) -> the raw run's K2+K3 inputs (host) with the most
+# live cells at that shape
+K23_CAPTURES = {}
+K23_CAPTURE_RUN = "main"
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): 3.35 TB/s of
 # device memory and 67 TFLOP/s of float32 outside the tensor cores
@@ -178,12 +212,16 @@ def card_line():
 
 
 def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps calls, after one warm-up."""
+    """Mean device time of fn() over reps calls, after one warm-up.  A
+    sleep kernel queued ahead of the first event (~1 ms a call) keeps the
+    card busy while the host queues the calls, so that a short kernel is
+    timed on the device and not at the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000 * reps)
     t0.record()
     for _ in range(reps):
         fn()
@@ -194,20 +232,49 @@ def cuda_ms(fn, reps):
 
 # ---------------------------------------------------------------- phase 1
 
+def k23_occupancy(Cb, R, S):
+    """The K2 and K3 instantiations a bucket takes: registers and spilled
+    bytes per thread, dynamic shared memory per block, resident blocks per
+    SM (the CUDA occupancy API) and the resource that bounds them (per SM
+    of an H100: 65,536 registers allocated in 256 per warp, 233,472 B of
+    shared memory with 1,024 B reserved per block, 64 warps, 32 blocks;
+    a block holds a warp per two branches)."""
+    import ctypes
+    from flye_tpu_torch.ops import _cuda
+    fn = _cuda.lib("polish_score").polish_score_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for which, name in ((2, "K2"), (3, "K3")):
+        buf = (ctypes.c_int * 4)()
+        _cuda.check(fn(which, Cb, R, S, buf), f"polish_score_info {name}")
+        regs, spill, smem, blocks = list(buf)
+        per_warp = -(-regs * 32 // 256) * 256
+        warps = -(-R // 2)
+        limits = {"registers": 65536 // per_warp // warps,
+                  "shared memory": 233472 // (smem + 1024),
+                  "warps": 64 // warps, "blocks": 32}
+        out[name] = {"regs": regs, "spill_bytes": spill, "smem": smem,
+                     "blocks_per_sm": blocks, "warps_per_block": warps,
+                     "bound_by": min(limits, key=limits.get),
+                     "limits": limits}
+    return out
+
+
 def phase_build():
     """Build the kernels and the native helpers; print ptxas's registers
-    and shared memory per kernel."""
+    and shared memory per kernel, and K2's and K3's occupancy."""
     from flye_tpu_torch import native
     from flye_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     err = []
 
-    def build_native():
+    def build_side():
         try:
             native.get()
         except Exception as e:  # reported below, on the main thread
             err.append(e)
-    th = threading.Thread(target=build_native)
+    th = threading.Thread(target=build_side)
     th.start()
     sources = ["chain_dp", "polish_score", "polish_fused", "levenshtein"]
     _cuda.build(sources)
@@ -220,8 +287,18 @@ def phase_build():
           flush=True)
     for name, text in sorted(_cuda.BUILD_LOG.items()):
         for line in text.splitlines():
-            if "Compiling entry" in line or " Used " in line:
+            if "Compiling entry" in line or " Used " in line \
+                    or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    for Cb, S, R in [(64, 96, 8), (32, 31, 8), (48, 63, 8), (96, 127, 8),
+                     (160, 240, 8), (1536, 2304, 8)]:
+        for name, o in k23_occupancy(Cb, R, S).items():
+            print(f"[build] {name} at (Cb,S,R)=({Cb},{S},{R}): {o['regs']} "
+                  f"registers, {o['spill_bytes']} B spilled, {o['smem']} B "
+                  f"shared memory per block, {o['blocks_per_sm']} blocks "
+                  f"({o['blocks_per_sm'] * o['warps_per_block']} warps) per "
+                  f"SM, bound by "
+                  f"{o['bound_by']} (limits {o['limits']})", flush=True)
     print(f"[build] card: {card_line()}", flush=True)
 
 
@@ -405,37 +482,114 @@ def hill_climb():
 
 
 def polish_work(B, Cb, R, S, clen, blen, bmask):
-    """(bytes, operations) of K2, K3 and K4 at one bucket: bytes are
-    inputs read once and outputs written once (K2's rows bt are K2's
-    output and K3's input; K4 keeps them on chip), operations the live
-    cells (candidate rows up to clen, branch columns up to blen; K3 only
-    on the branches bmask keeps).  clen [B], blen [B, R] and bmask
-    [B, R] are numpy arrays; where clen or bmask is None (the census
-    does not see both for K2 and K3), the operations that need it count
-    0."""
-    rows = B * (Cb + 1) * R * (S + 1) * 4          # bt, f32
+    """(bytes, operations) of K2, K3 and the pair's function (K2+K3 or
+    K4) at one bucket: bytes are inputs read once and outputs written
+    once, operations the live cells (candidate rows up to clen, branch
+    columns up to blen; K3 only on the branches bmask keeps).  K2's
+    output is the live region of its suffix rows, rows below clen and
+    columns up to blen (bt: read by K3; K4 keeps its rows on chip and the
+    pair's bound counts none), the whole of bt where clen is unknown.
+    clen [B], blen [B, R] and bmask [B, R] are numpy arrays; where clen
+    or bmask is None, the operations that need it count 0."""
+    rows = B * Cb * R * (S + 1) * 4                # bt, f32
     side = B * R * (S + 1) * 4                     # sg or gp
     small = B * Cb + B * R * S + 4 * B * R + 4 * B * Cb + 100
     outs = 4 * B * (1 + Cb + 4 * (Cb + 1) + 4 * Cb)
     ops2 = ops3 = 0
     if clen is not None:
         c = clen.astype(np.int64)[:, None]
-        cols = blen.astype(np.int64) + 1
+        cols = np.minimum(blen.astype(np.int64), S) + 1
+        rows = 4 * int((np.minimum(c, Cb) * cols).sum())
         ops2 = K2_OPS_PER_CELL * int((c * cols).sum())
         if bmask is not None:
             ops3 = K3_OPS_PER_CELL * int(((c + 1) * cols * bmask).sum())
-    return ((small + side + 4 * B * (Cb + 1) + 4 * B + rows, ops2),
-            (small + side + 4 * B * R + rows + outs, ops3),
+    return ((small + side + 4 * B + rows, ops2),
+            (small + 2 * side + 4 * B + 4 * B * R + rows + outs, ops3),
             (small + 2 * side + 4 * B * (Cb + 1) + 4 * B + 4 * B * R
              + outs, ops2 + ops3))
 
 
 def polish_bounds(B, Cb, R, S, clen, blen, bmask):
-    """Bounds of K2, K3 and K4 at one bucket (`polish_work`; the length
-    and mask tensors are read back here)."""
+    """Bounds of K2, K3 and the pair (K2+K3 or K4) at one bucket
+    (`polish_work`; the length and mask tensors are read back here)."""
     host = [t.cpu().numpy() for t in (clen, blen, bmask)]
     return tuple(bound(n_bytes, ops, FP32_OPS_PER_S)
                  for n_bytes, ops in polish_work(B, Cb, R, S, *host))
+
+
+def plain_pair_chunked(args, chunk):
+    """The plain version's four outputs, computed on lanes [i, i+chunk)
+    at a time (each lane's outputs depend on its own inputs only) and
+    concatenated, with its device ms (CUDA events, one run)."""
+    import torch
+    import flye_tpu_torch.ops.polish as TP
+    cand, clen, branches, blen, bmask, subs = args
+    B = cand.shape[0]
+    outs, ms = [], 0.0
+    for i in range(0, B, chunk):
+        sl = slice(i, i + chunk)
+        a = (cand[sl], clen[sl], branches[sl], blen[sl], bmask[sl], subs)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        raw = TP._score_edits_raw(*a)
+        e1.record()
+        torch.cuda.synchronize()
+        ms += e0.elapsed_time(e1)
+        outs.append(raw)
+    total = torch.cat([o[0] for o in outs])
+    return ((total, *[torch.cat([o[k] for o in outs], dim=-1)
+                      for k in (1, 2, 3)]), ms)
+
+
+def check_k23(tag, args, chunk=None):
+    """K2+K3 on one batch of CUDA tensors: K2's rows equal the plain
+    rows on their live region, the four outputs equal the plain
+    version's bit for bit, two launches bitwise equal.  Raises
+    otherwise.  Returns (tables, bt, the kernels' outputs, the plain
+    version's, its ms)."""
+    import torch
+    import flye_tpu_torch.ops.polish as TP
+    cand, clen, branches, blen, bmask, subs = args
+    B, Cb = cand.shape
+    _, R, S = branches.shape
+    tables = TP._tables(cand, clen, branches, blen, subs)
+    bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs, tables)
+    raw_k = TP._forward_scores_cuda(cand, clen, branches, blen, bmask, subs,
+                                    tables, bt)
+    raw_k2 = TP.score_edits_raw(*args)
+    if not all(TP.bitwise_equal(a, b) for a, b in zip(raw_k, raw_k2)):
+        raise AssertionError(f"two K2+K3 launches differ at {tag}")
+    chunk = chunk or B
+    for i in range(0, B, chunk):     # K2's rows, lanes [i, i+chunk)
+        sl = slice(i, i + chunk)
+        Bm = TP._backward_rows(cand[sl], clen[sl], branches[sl], blen[sl],
+                               subs, tuple(t[sl] for t in tables))
+        want = Bm[:-1].permute(1, 2, 0, 3)
+        got = TP._bt_rows(bt[sl], clen[sl], blen[sl], S)
+        live = TP._bt_live(clen[sl], blen[sl], Cb, S)
+        if not TP.bitwise_equal(got[live], want[live]):
+            raise AssertionError(f"K2 rows != plain at {tag}")
+        del Bm, want, got, live
+    raw_p, plain_ms = plain_pair_chunked(args, chunk)
+    names = ("total", "del_raw", "ins4", "sub4")
+    for name, a, b in zip(names, raw_k, raw_p):
+        if not TP.bitwise_equal(a, b):
+            bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            raise AssertionError(f"K2+K3 {name} != plain at {tag}: {bad} "
+                                 "entries differ")
+    return tables, bt, raw_k, raw_p, plain_ms
+
+
+def time_k23(args, tables, bt, reps):
+    """(K2 ms, K3 ms) of the kernels on one batch."""
+    import flye_tpu_torch.ops.polish as TP
+    cand, clen, branches, blen, bmask, subs = args
+    ms2 = cuda_ms(lambda: TP._backward_rows_cuda(
+        cand, clen, branches, blen, subs, tables), reps)
+    ms3 = cuda_ms(lambda: TP._forward_scores_cuda(
+        cand, clen, branches, blen, bmask, subs, tables, bt), reps)
+    return ms2, ms3
 
 
 def phase_polish(report):
@@ -443,49 +597,19 @@ def phase_polish(report):
     import flye_tpu_torch.ops.polish as TP
     dev = torch.device("cuda")
     per_k2, per_k3 = [], []
-    err_k2 = err_k3 = 0.0
     # (Cb, S, R) buckets with the lane counts timed at each
     for (Cb, S, R), B in [((64, 96, 8), 1024), ((160, 240, 8), 256),
                           ((384, 576, 8), 64), ((1536, 2304, 8), 8)]:
         args = [torch.from_numpy(a).to(dev)
                 for a in polish_inputs(Cb + S, (B, Cb, R, S))]
-        cand, clen, branches, blen, bmask, subs = args
-        tables = TP._tables(cand, clen, branches, blen, subs)
-        bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs,
-                                    tables)
-        Bm = TP._backward_rows(cand, clen, branches, blen, subs, tables)
-        fin = Bm > -1e29
-        if not torch.equal(fin, bt.transpose(0, 1) > -1e29):
-            raise AssertionError(f"K2 finiteness differs at {Cb, S, R}")
-        e2 = float((bt.transpose(0, 1) - Bm)[fin].abs().max())
-        raw_k = TP._forward_scores_cuda(cand, branches, blen, bmask, subs,
-                                        tables, bt)
-        raw_k2 = TP.score_edits_raw(*args)
-        if not all(torch.equal(a, b) for a, b in zip(raw_k, raw_k2)):
-            raise AssertionError(f"two launches differ at {Cb, S, R}")
-        raw_p = TP._forward_scores(cand, branches, blen, bmask, subs,
-                                   tables, Bm)
-        e3 = 0.0
-        for a, b in zip(raw_k, raw_p):
-            fa, fb = a > -1e29, b > -1e29
-            if not torch.equal(fa, fb):
-                raise AssertionError(f"K3 finiteness differs at "
-                                     f"{Cb, S, R}")
-            if fa.any():
-                e3 = max(e3, float((a - b)[fa].abs().max()))
+        cand, clen = args[0], args[1]
+        tables, bt, raw_k, raw_p, _ = check_k23(f"{Cb, S, R}", args)
         fk = TP._finish_scores(cand, clen, *raw_k, groups=1)
         fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
         if not (torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])):
             raise AssertionError(f"chars differ at {Cb, S, R}")
-        if max(e2, e3) > 1e-3:
-            raise AssertionError(f"scores differ by {max(e2, e3)} at "
-                                 f"{Cb, S, R}")
-        err_k2, err_k3 = max(err_k2, e2), max(err_k3, e3)
-        ms2 = cuda_ms(lambda: TP._backward_rows_cuda(
-            cand, clen, branches, blen, subs, tables), 3)
-        ms3 = cuda_ms(lambda: TP._forward_scores_cuda(
-            cand, branches, blen, bmask, subs, tables, bt), 3)
-        del Bm
+        ms2, ms3 = time_k23(args, tables, bt, 3)
+        cand, clen, branches, blen, bmask, subs = args
         pl2 = cuda_ms(lambda: TP._backward_rows(
             cand, clen, branches, blen, subs, tables), 1)
         Bm = TP._backward_rows(cand, clen, branches, blen, subs, tables)
@@ -493,23 +617,26 @@ def phase_polish(report):
             cand, branches, blen, bmask, subs, tables, Bm), 1)
         del Bm, bt
         torch.cuda.empty_cache()
-        b2, b3, _ = polish_bounds(B, Cb, R, S, clen, blen, bmask)
-        print(f"[K2+K3] (Cb,S,R)=({Cb},{S},{R}) x{B} lanes: max err "
-              f"K2 {e2:.2e} K3 {e3:.2e}, chars exact, launches "
-              f"bitwise equal; K2 {ms2:.3f} ms (plain {pl2:.1f} ms, "
-              f"bound {b2[0]:.4f} ms, {b2[1]}), K3 {ms3:.3f} ms (plain "
-              f"{pl3:.1f} ms, bound {b3[0]:.4f} ms, {b3[1]})", flush=True)
-        per_k2.append({"shape": [B, Cb, R, S], "ms": ms2, "plain_ms": pl2,
-                       "bound_ms": b2[0], "bound_by": b2[1]})
-        per_k3.append({"shape": [B, Cb, R, S], "ms": ms3, "plain_ms": pl3,
-                       "bound_ms": b3[0], "bound_by": b3[1]})
+        b2, b3, bp = polish_bounds(B, Cb, R, S, clen, blen, bmask)
+        print(f"[K2+K3] (Cb,S,R)=({Cb},{S},{R}) x{B} lanes: bit-identical "
+              f"(K2 rows on their live region, all four outputs), chars "
+              f"exact, launches bitwise equal; K2 {ms2:.3f} ms (plain "
+              f"{pl2:.1f} ms, bound {b2[0]:.4f} ms, {b2[1]}), K3 "
+              f"{ms3:.3f} ms (plain {pl3:.1f} ms, bound {b3[0]:.4f} ms, "
+              f"{b3[1]}); pair {ms2 + ms3:.3f} ms, bound {bp[0]:.4f} ms "
+              f"({bp[1]})", flush=True)
+        per_k2.append({"shape": [B, Cb, R, S], "ms": ms2,
+                       "plain_ms": pl2, "bound_ms": b2[0], "bound_by": b2[1],
+                       "pair_bound_ms": bp[0], "pair_bound_by": bp[1]})
+        per_k3.append({"shape": [B, Cb, R, S], "ms": ms3,
+                       "plain_ms": pl3, "bound_ms": b3[0], "bound_by": b3[1],
+                       "pair_bound_ms": bp[0], "pair_bound_by": bp[1]})
 
     fixed, B = hill_climb()
     print(f"[K2+K3] hill climb x{B}: kernel == plain, {fixed}/{B} "
           "bubbles restored to the truth", flush=True)
-    report["polish_backward"] = {"max_abs_err": err_k2,
-                                 "per_shape": per_k2}
-    report["polish_forward_score"] = {"max_abs_err": err_k3,
+    report["polish_backward"] = {"max_abs_err": 0, "per_shape": per_k2}
+    report["polish_forward_score"] = {"max_abs_err": 0,
                                       "per_shape": per_k3}
 
 
@@ -694,9 +821,6 @@ def launch_inputs(name, args):
     if name == "polish_backward":
         cand, clen, branches, blen = args[:4]
         lens = (clen, blen)
-    elif name == "polish_forward_score":
-        cand, branches, blen, bmask = args[:4]
-        lens = (blen, bmask)
     else:
         cand, clen, branches, blen, bmask = args[:5]
         lens = (clen, blen, bmask)
@@ -708,9 +832,8 @@ def launch_inputs(name, args):
 def launch_work(name, key, host, scalars):
     """(bytes, operations, their peak rate) of one launch, from its
     shape and the host copies of `launch_inputs`' tensors: K1_OPS_PER_
-    PAIR per admissible pair for K1; `polish_work` for K2, K3 (its bytes
-    only: its launcher is not handed cand_len) and K4; K5_OPS_PER_CELL
-    per DP cell for K5."""
+    PAIR per admissible pair for K1; `polish_work` for K2, K3 and K4;
+    K5_OPS_PER_CELL per DP cell for K5."""
     if name == "chain_dp":
         T, M, L = key
         pairs = k1_admissible_pairs(*host, scalars[1], L)
@@ -724,10 +847,8 @@ def launch_work(name, key, host, scalars):
     Cb, S, R, B = key
     if name == "polish_backward":
         lens, pick = (*host, None), 0
-    elif name == "polish_forward_score":
-        lens, pick = (None, *host), 1
     else:
-        lens, pick = host, 2
+        lens, pick = host, 1 if name == "polish_forward_score" else 2
     n_bytes, ops = polish_work(B, Cb, R, S, *lens)[pick]
     return n_bytes, ops, FP32_OPS_PER_S
 
@@ -755,13 +876,25 @@ class Census:
 
     After the run's synchronize, `finish` reads the events, counts each
     launch's work from the host copies (`launch_work`), prints the
-    census and keeps, per K1 shape, the inputs of the launch with the
-    most admissible pairs for phase 8."""
+    census, K2+K3 per launch pair (K3 and the K2 launch before it on its
+    thread) against the pair's own bound, and keeps, per K1 shape, the
+    inputs of the launch with the most admissible pairs for phase 8.
+    In the raw run (K23_CAPTURE_RUN) each K3 launch also copies its
+    candidates (and, once per tensor, its branches and table); once a
+    copy has landed (an event on the census's stream, queried, never
+    waited for) it is kept only while its launch has the most live cells
+    of its shape, so the pinned blocks of the others are reused; `finish`
+    hands the kept inputs to phase 9."""
 
     def __init__(self, tag):
         self.tag = tag
-        # (kernel, shape, (start, end), host copies, scalars)
+        # (kernel, shape, (start, end), host copies, scalars, extra):
+        # extra of K3 = {"k2": index of its K2 launch}
         self.launches = []
+        self.capture = tag == K23_CAPTURE_RUN
+        self.pending = []    # K3 captures in launch order, not yet landed
+        self.best23 = {}     # (Cb, S, R, B) -> (live cells, inputs)
+        self.cache = {}   # (data_ptr, shape, dtype) -> (weakref, host)
         self.local = threading.local()
         self.lock = threading.Lock()
         self.saved = []
@@ -793,18 +926,67 @@ class Census:
         self.local.events = (start, end)
 
     def _wrap(self, name, fn):
+        import torch
+
         def launch(*args):
             self.local.events = None
             out = fn(*args)
             t0 = time.perf_counter()
             key, tensors, scalars = launch_inputs(name, args)
             host = self._to_host(tensors)
+            extra = cap = None
+            if name == "polish_forward_score":
+                extra = {"k2": getattr(self.local, "k2", None)}
+                self.local.k2 = None
+                if self.capture:
+                    cap = {"cand": self._to_host([args[0]])[0],
+                           "branches": self._to_host_once(args[2]),
+                           "subs": self._to_host_once(args[5])}
+                    landed = torch.cuda.Event()
+                    landed.record(self.stream)
             with self.lock:
+                if name == "polish_backward":
+                    self.local.k2 = len(self.launches)
                 self.launches.append((name, key, self.local.events, host,
-                                      scalars))
+                                      scalars, extra))
+                if cap is not None:
+                    self.pending.append((key, host, cap, landed))
+                    self._keep_best()
                 self.host_s += time.perf_counter() - t0
             return out
         return launch
+
+    def _keep_best(self, final=False):
+        """Under the lock: take the K3 captures whose copies have landed
+        (all of them when `final`, after the run's synchronize) and keep,
+        per shape, the one with the most live cells; drop the others and
+        the cached copies whose tensors have died."""
+        while self.pending and (final or self.pending[0][3].query()):
+            (Cb, S, R, B), host, cap, _ = self.pending.pop(0)
+            clen, blen, bmask = (h.numpy() for h in host)
+            cells = int((np.minimum(clen.astype(np.int64), Cb)[:, None]
+                         * (np.minimum(blen, S) + 1)).sum())
+            if cells > self.best23.get((Cb, S, R, B), (-1,))[0]:
+                self.best23[(Cb, S, R, B)] = (cells, dict(
+                    {k: v.numpy() for k, v in cap.items()},
+                    clen=clen, blen=blen, bmask=bmask))
+        self.cache = {k: v for k, v in self.cache.items()
+                      if v[0]() is not None}
+
+    def _to_host_once(self, t):
+        """`_to_host` of one tensor, copied once for as long as the same
+        tensor object lives (a climb hands every step the same branches
+        and table)."""
+        import weakref
+        key = (t.data_ptr(), tuple(t.shape), t.dtype)
+        with self.lock:
+            hit = self.cache.get(key)
+        if hit is not None and hit[0]() is t:
+            return hit[1]
+        h = self._to_host([t])[0]
+        with self.lock:
+            self.cache[key] = (weakref.ref(t), h)
+        return h
 
     def _to_host(self, tensors):
         """Pinned host copies of the tensors, made on the census's stream
@@ -821,6 +1003,23 @@ class Census:
                 self.host_bytes += h.numel() * h.element_size()
         return host
 
+    def _pair(self, pairs23, key, host, extra, ms3):
+        """Count one K2+K3 launch pair: its device ms against the bound
+        of the pair's function (`polish_work`, read the same whatever
+        implements it)."""
+        Cb, S, R, B = key
+        clen, blen, bmask = (h.numpy() for h in host)
+        k2 = self.launches[extra["k2"]]
+        n_bytes, ops = polish_work(B, Cb, R, S, clen, blen, bmask)[2]
+        b_ms, b_by = bound(n_bytes, ops, FP32_OPS_PER_S)
+        r = pairs23.setdefault(key, {
+            "kernel": "polish_pair", "shape": list(key), "launches": 0,
+            "ms": 0.0, "bound_ms": 0.0, "by": collections.Counter()})
+        r["launches"] += 1
+        r["ms"] += ms3 + k2[2][0].elapsed_time(k2[2][1])
+        r["bound_ms"] += b_ms
+        r["by"][b_by] += 1
+
     def finish(self):
         """After the run's synchronize: print the census, keep its rows
         in CENSUS and, per K1 shape, the inputs of the launch with the
@@ -835,8 +1034,13 @@ class Census:
                                       x[4]), self.launches))
         rows = {}
         best = {}    # (T, M, L) -> (pairs, host copies, scalars)
-        for (name, key, (e0, e1), host, scalars), (n_bytes, ops, rate) in zip(
-                self.launches, work):
+        pairs23 = {}     # (Cb, S, R, B) -> K2+K3 census row
+        with self.lock:
+            self._keep_best(final=True)
+        for (name, key, (e0, e1), host, scalars, extra), (
+                n_bytes, ops, rate) in zip(self.launches, work):
+            if extra is not None and extra["k2"] is not None:
+                self._pair(pairs23, key, host, extra, e0.elapsed_time(e1))
             b_ms, b_by = bound(n_bytes, ops, rate)
             r = rows.setdefault((name, key), {
                 "kernel": name, "shape": list(key), "launches": 0,
@@ -851,6 +1055,7 @@ class Census:
                 if pairs > best.get(key, (-1,))[0]:
                     best[key] = (pairs, [h.numpy() for h in host], scalars)
         self.launches = []
+        self.cache = {}
         order = {name: n for n, (name, _, _) in enumerate(CENSUS_WRAPPERS)}
         out = []
         for (name, key), r in sorted(
@@ -872,7 +1077,25 @@ class Census:
                       f"{sum(r['launches'] for r in mine)} launches, "
                       f"{ms:.3f} ms, bound {b_ms:.3f} ms, "
                       f"{ms - b_ms:.3f} ms above it", flush=True)
-        CENSUS[self.tag] = out
+        pair_rows = []
+        for key in sorted(pairs23):
+            r = pairs23[key]
+            r["bound_by"] = r.pop("by").most_common(1)[0][0]
+            pair_rows.append(r)
+            print(f"[census {self.tag}] K2+K3 {shape_text('', key)}: "
+                  f"{r['launches']} pairs, {r['ms']:.3f} ms, pair bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        if pair_rows:
+            ms = sum(r["ms"] for r in pair_rows)
+            b_ms = sum(r["bound_ms"] for r in pair_rows)
+            print(f"[census {self.tag}] K2+K3 in all: "
+                  f"{sum(r['launches'] for r in pair_rows)} pairs, "
+                  f"{ms:.3f} ms, pair bound {b_ms:.3f} ms, "
+                  f"{ms - b_ms:.3f} ms above it", flush=True)
+        CENSUS[self.tag] = out + pair_rows
+        for key, (cells, cap) in self.best23.items():
+            K23_CAPTURES[key] = dict(cap, cells=cells)
+        self.best23 = {}
         for (T, M, L), (pairs, (cur, ext, nv), (k, mj)) in best.items():
             CAPTURES[(self.tag, T, M, L)] = {
                 "cur": cur, "ext": ext, "nvalid": nv, "k": k,
@@ -1055,7 +1278,7 @@ def phase_fused(report):
         bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs,
                                     tables)
         ms3 = cuda_ms(lambda: TP._forward_scores_cuda(
-            cand, branches, blen, bmask, subs, tables, bt), 3)
+            cand, clen, branches, blen, bmask, subs, tables, bt), 3)
         del bt
         plain_ms = cuda_ms(lambda: TP._forward_scores(
             cand, branches, blen, bmask, subs, tables, TP._backward_rows(
@@ -1126,9 +1349,11 @@ def plain_versions():
 
 def phase_hifi(plain=False, keep=None):
     """`--pacbio-hifi` to assembly.fasta, then `--polish-target` on its
-    draft, both with FLYE_TPU_FUSED=1; returns the launches of both.
-    plain: run through the plain versions on the card (no launch checks,
-    no floors); keep: move the two output directories there."""
+    draft, both with FLYE_TPU_FUSED=1, then (unless plain) the HiFi run
+    resumed from consensus on the default route; returns the launches
+    by run ("hifi": both fused runs, "hifi-default").  plain: run
+    through the plain versions on the card (no launch checks, no
+    floors); keep: move the two fused output directories there."""
     import torch
     from flye_tpu_torch.ops import _cuda
 
@@ -1183,11 +1408,54 @@ def phase_hifi(plain=False, keep=None):
     if p_contigs != d_contigs:
         raise AssertionError(f"polished_1.fasta has {p_contigs} contigs, "
                              f"the draft {d_contigs}")
+    runs = {"hifi": launches}
+    if not plain:
+        runs["hifi-default"] = hifi_default_route(out, reads_path, glen)
     if keep:
         os.makedirs(keep, exist_ok=True)
         for d in (out, out_pt):
             shutil.move(d, os.path.join(keep, os.path.basename(d)))
     shutil.rmtree(RUN_DIR, ignore_errors=True)
+    return runs
+
+
+def hifi_default_route(out, reads_path, glen):
+    """A copy of the fused HiFi run resumed from consensus with
+    FLYE_TPU_FUSED unset: K2+K3 take K4's buckets.  K4 equals K2+K3 bit
+    for bit, so every file of HIFI_OUTPUTS must equal the fused run's;
+    raises otherwise.  The copy's HIFI_OUTPUTS (all written from the
+    consensus stage on) are deleted first, so each one compared was
+    written by this run.  Returns the run's launches."""
+    from flye_tpu_torch.ops import _cuda
+    out_def = out + "_default"
+    shutil.copytree(out, out_def)
+    for rel in HIFI_OUTPUTS:
+        os.remove(os.path.join(out_def, rel))
+    _cuda.reset_launches()
+    wall, jobs = run_cli(
+        "hifi-default", ["--pacbio-hifi", reads_path, "-o", out_def, "-g",
+                         f"{glen}", "--device", "cuda", "--resume-from",
+                         "consensus"])
+    launches = dict(_cuda.LAUNCHES)
+    print(f"[hifi-default] stage seconds {jobs}", flush=True)
+    print(f"[hifi-default] wall {wall:.1f} s from consensus to "
+          f"assembly.fasta, launches {launches}", flush=True)
+    check_launches("HiFi default-route", launches,
+                   ("polish_backward", "polish_forward_score"),
+                   must_not=("polish_fused",))
+    differ = []
+    for rel in HIFI_OUTPUTS:
+        with open(os.path.join(out, rel), "rb") as f:
+            a = f.read()
+        with open(os.path.join(out_def, rel), "rb") as f:
+            if f.read() != a:
+                differ.append(rel)
+    if differ:
+        raise AssertionError(f"the default-route HiFi run differs from the "
+                             f"fused run in {differ}")
+    print(f"[hifi-default] {len(HIFI_OUTPUTS)} output files byte-identical "
+          "to the fused run's", flush=True)
+    shutil.rmtree(out_def, ignore_errors=True)
     return launches
 
 
@@ -1238,7 +1506,54 @@ def phase_k1_paths(report):
                                    "per_shape": per_shape})
 
 
-PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "k1paths")
+# ---------------------------------------------------------------- phase 9
+
+def phase_k23_paths(report):
+    """K2+K3 on the inputs the raw path handed them (K23_CAPTURES), per
+    (Cb, S, R, lanes): checked and timed as in phase 3."""
+    import torch
+    from flye_tpu_torch.ops import _cuda
+    if not K23_CAPTURES:
+        raise AssertionError("no K2+K3 launch was captured: run phase 5 "
+                             "first")
+    dev = torch.device("cuda")
+    for (Cb, S, R, B), cap in sorted(K23_CAPTURES.items()):
+        args = [torch.from_numpy(np.ascontiguousarray(cap[k])).to(dev)
+                for k in ("cand", "clen", "branches", "blen", "bmask",
+                          "subs")]
+        n2 = _cuda.LAUNCHES["polish_backward"]
+        # the plain version's rows at <= ~1 GB per chunk of lanes
+        chunk = max(1, (1 << 28) // ((Cb + 1) * R * (S + 1)))
+        tables, bt, _, _, plain_ms = check_k23(
+            f"raw path (Cb,S,R)=({Cb},{S},{R}) x{B}", args, chunk)
+        if _cuda.LAUNCHES["polish_backward"] == n2:
+            raise AssertionError("phase 9 did not launch K2")
+        ms2, ms3 = time_k23(args, tables, bt, 3)
+        del bt, tables
+        torch.cuda.empty_cache()
+        clen, blen, bmask = cap["clen"], cap["blen"], cap["bmask"]
+        b2, b3, bp = (bound(n, ops, FP32_OPS_PER_S) for n, ops in
+                      polish_work(B, Cb, R, S, clen, blen, bmask))
+        print(f"[K2+K3] raw path (Cb,S,R)=({Cb},{S},{R}) x{B} lanes "
+              f"({cap['cells']} live cells): bit-identical (K2 rows on "
+              f"their live region, all four outputs), launches bitwise "
+              f"equal; K2 {ms2:.3f} ms (bound {b2[0]:.4f} ms, {b2[1]}), "
+              f"K3 {ms3:.3f} ms (bound {b3[0]:.4f} ms, {b3[1]}); pair "
+              f"{ms2 + ms3:.3f} ms (plain {plain_ms:.1f} ms, pair bound "
+              f"{bp[0]:.4f} ms, {bp[1]})", flush=True)
+        for name, ms, bb in (("polish_backward", ms2, b2),
+                             ("polish_forward_score", ms3, b3)):
+            report.setdefault(name, {"max_abs_err": 0, "per_shape": []})
+            report[name]["per_shape"].append({
+                "shape": [B, Cb, R, S], "path": "raw", "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bb[0],
+                "bound_by": bb[1], "pair_ms": ms2 + ms3,
+                "pair_bound_ms": bp[0], "pair_bound_by": bp[1],
+                "cells": cap["cells"]})
+
+
+PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "k1paths",
+          "k23paths")
 
 
 def main():
@@ -1280,12 +1595,15 @@ def main():
                       ("fused", lambda: phase_fused(report)),
                       ("hifi", lambda: phase_hifi(args.hifi_plain,
                                                   args.keep_runs)),
-                      ("k1paths", lambda: phase_k1_paths(report))):
+                      ("k1paths", lambda: phase_k1_paths(report)),
+                      ("k23paths", lambda: phase_k23_paths(report))):
         if name in phases:
             t0 = time.perf_counter()
             out = run()
-            if name in ("main", "hifi"):
-                paths["raw" if name == "main" else "hifi"] = out
+            if name == "main":
+                paths["raw"] = out
+            elif name == "hifi":
+                paths.update(out)
             print(f"[phase] {name} done in {time.perf_counter() - t0:.1f} s",
                   flush=True)
 
@@ -1300,6 +1618,10 @@ def main():
         by_path = {p: counts[name] for p, counts in paths.items()}
         census = {tag: [row for row in rows if row["kernel"] == name]
                   for tag, rows in CENSUS.items()}
+        if name in ("polish_backward", "polish_forward_score"):
+            census["K2+K3"] = {
+                tag: [row for row in rows if row["kernel"] == "polish_pair"]
+                for tag, rows in CENSUS.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -17,8 +17,10 @@ and the best edit of every parity-active block applies.
 Scoring (`score_edits_raw`) runs the plain version `_score_edits_raw`
 on a CPU tensor and one of two hand-written CUDA routes on a CUDA
 tensor, chosen by shape alone (`cuda_route`):
-  - K2+K3, `csrc/polish_score.cu`: K2 writes the suffix rows to device
-    memory, K3 reads them back beside the forward rows and scores;
+  - K2+K3, `csrc/polish_score.cu`: K2 writes the live region of the
+    suffix rows (rows below cand_len, columns up to blen) to device
+    memory, K3 reads it back beside the forward rows and scores; each
+    branch's row sits in its warp's registers;
   - K4, `csrc/polish_fused.cu`: both sweeps in one kernel, the suffix
     rows kept in a shared-memory stack.  Taken when the caller asks
     for it (`fused`; `polish_bubbles` reads FLYE_TPU_FUSED, as the JAX
@@ -85,9 +87,8 @@ def _wsum(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _tables(cand, cand_len, branches, blen, subs):
     """Per-lane constant tables shared by the plain version and the
-    kernels' wrapper: gp/sg [B,R,S+1] (branch gap prefix / suffix
-    costs), vgap [B,Cb] (candidate gap costs, 0 past cand_len), ds
-    [B,Cb+1] (cost of deleting cand[i:clen])."""
+    kernels' wrappers: gp/sg [B,R,S+1] (branch gap prefix / suffix
+    costs), vgap [B,Cb] (candidate gap costs, 0 past cand_len)."""
     Bb, Cb = cand.shape
     S = branches.shape[2]
     dev = cand.device
@@ -101,10 +102,15 @@ def _tables(cand, cand_len, branches, blen, subs):
     vgap_all = subs[:4, 4][cand.long()]                       # [B,Cb]
     live_c = torch.arange(Cb, device=dev)[None, :] < cand_len[:, None]
     vgap = torch.where(live_c, vgap_all, torch.zeros((), device=dev))
+    return gp, sg, vgap
+
+
+def _ds(vgap):
+    """ds [B,Cb+1]: the cost of deleting cand[i:clen] (vgap's suffix
+    sums), the value of the suffix rows past blen."""
     csum = _cumsum(vgap)
-    ds = csum[:, -1:] - torch.cat(
-        [torch.zeros((Bb, 1), device=dev), csum], dim=1)
-    return gp, sg, vgap, ds
+    return csum[:, -1:] - torch.cat(
+        [torch.zeros((vgap.shape[0], 1), device=vgap.device), csum], dim=1)
 
 
 def _match_rows(cand, branches, subs):
@@ -122,7 +128,8 @@ def _backward_rows(cand, cand_len, branches, blen, subs, tables):
     Cb = cand.shape[1]
     S = branches.shape[2]
     dev = cand.device
-    _, sg, vgap, ds = tables
+    _, sg, vgap = tables
+    ds = _ds(vgap)
     neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
     _, match_row = _match_rows(cand, branches, subs)
     in_b = torch.arange(S + 1, device=dev) <= blen[:, :, None]
@@ -148,7 +155,7 @@ def _forward_scores(cand, branches, blen, bmask, subs, tables, Bm):
     Cb = cand.shape[1]
     S = branches.shape[2]
     dev = cand.device
-    gp, _, vgap, _ = tables
+    gp, _, vgap = tables
     w = bmask.to(torch.float32)
     sw, match_row = _match_rows(cand, branches, subs)
     jmask = torch.where(torch.arange(S + 1, device=dev) <= blen[:, :, None],
@@ -209,56 +216,103 @@ def _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs):
         raise ValueError(f"{R} branches per lane; the kernels take 1..32")
 
 
+def _bt_pad(n):
+    """n rounded up to whole 32-byte sectors of f32 (K2's row strides)."""
+    return -(-n // 8) * 8
+
+
 def _backward_rows_cuda(cand, cand_len, branches, blen, subs, tables):
-    """Launch K2: suffix rows as bt [B, Cb+1, R, S+1] f32 (the plain
-    version's rows, lane-major)."""
+    """Launch K2: the live region of the suffix rows, packed into bt
+    [B, R, Cb, S1p] f32 (S1p = S+1 rounded up to 8 columns).  For lane
+    b and branch r only the rows i < cand_len[b] and columns
+    j <= blen[b, r] are written, equal there to the plain version's
+    rows: row i at offset i * ldb of the branch's Cb * S1p floats, ldb =
+    blen + 1 rounded up to 8 (`_bt_rows` unpacks them).  Every other
+    entry is undefined (the rows i >= cand_len are sg, which K3 takes
+    from the tables itself)."""
     Bb, Cb = cand.shape
     _, R, S = branches.shape
-    _, sg, vgap, ds = tables
-    bt = torch.empty((Bb, Cb + 1, R, S + 1), dtype=torch.float32,
+    _, sg, vgap = tables
+    bt = torch.empty((Bb, R, Cb, _bt_pad(S + 1)), dtype=torch.float32,
                      device=cand.device)
     fn = _cuda.lib("polish_score").polish_backward_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = _cuda.ptr
     _cuda.launch("polish_backward", fn, cand.device, p(cand), p(branches),
-                 p(blen), p(sg), p(vgap), p(ds), p(cand_len), p(subs), p(bt),
+                 p(blen), p(sg), p(vgap), p(cand_len), p(subs), p(bt),
                  Bb, Cb, R, S)
     return bt
 
 
-def _forward_scores_cuda(cand, branches, blen, bmask, subs, tables, bt):
-    """Launch K3 on the suffix rows bt; same outputs as
-    _forward_scores."""
+def _bt_live(cand_len, blen, Cb, S):
+    """[B, R, Cb, S+1] bool: the live region of K2's rows (rows below
+    cand_len, columns up to blen), the only entries it writes."""
+    dev = blen.device
+    rows = torch.arange(Cb, device=dev)[:, None]
+    cols = torch.arange(S + 1, device=dev)
+    bl = blen.to(torch.int64).clamp(0, S)
+    return ((rows < cand_len[:, None, None, None].to(dev))
+            & (cols <= bl[:, :, None, None]))
+
+
+def _bt_rows(bt, cand_len, blen, S):
+    """K2's packed rows (`_backward_rows_cuda`) as [B, R, Cb, S+1], the
+    plain version's layout on the batch axis second: the live region
+    (`_bt_live`) from bt, NaN elsewhere.  For checks of the kernel."""
+    Bb, R, Cb, S1p = bt.shape
+    dev = bt.device
+    ldb = _bt_pad(blen.to(torch.int64).clamp(0, S) + 1)       # [B, R]
+    rows = torch.arange(Cb, device=dev)[:, None]
+    cols = torch.arange(S + 1, device=dev)
+    idx = (rows * ldb[:, :, None, None] + cols).reshape(Bb, R, -1)
+    got = torch.gather(bt.reshape(Bb, R, -1), 2,
+                       idx.clamp(max=Cb * S1p - 1)).reshape(Bb, R, Cb,
+                                                            S + 1)
+    return torch.where(_bt_live(cand_len, blen, Cb, S), got,
+                       torch.full((), float("nan"), device=dev))
+
+
+def bitwise_equal(a, b):
+    """True when two float tensors hold the same bits (NaN included)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _forward_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
+                         tables, bt):
+    """Launch K3 on K2's suffix rows bt (their live region only); same
+    outputs as _forward_scores."""
     Bb, Cb = cand.shape
     _, R, S = branches.shape
     dev = cand.device
-    gp, _, vgap, _ = tables
+    gp, sg, vgap = tables
     w = bmask.to(torch.float32)
     total = torch.empty(Bb, dtype=torch.float32, device=dev)
     del_raw = torch.empty((Cb, Bb), dtype=torch.float32, device=dev)
     ins4 = torch.empty((4, Cb + 1, Bb), dtype=torch.float32, device=dev)
     sub4 = torch.empty((4, Cb, Bb), dtype=torch.float32, device=dev)
     fn = _cuda.lib("polish_score").polish_forward_score_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = _cuda.ptr
     _cuda.launch("polish_forward_score", fn, dev, p(cand), p(branches),
-                 p(blen), p(gp), p(bt), p(vgap), p(w), p(subs), p(total),
-                 p(del_raw), p(ins4), p(sub4), Bb, Cb, R, S)
+                 p(blen), p(cand_len), p(gp), p(sg), p(bt), p(vgap), p(w),
+                 p(subs), p(total), p(del_raw), p(ins4), p(sub4), Bb, Cb, R,
+                 S)
     return total, del_raw, ins4, sub4
 
 
 def _score_edits_raw_cuda(cand, cand_len, branches, blen, bmask, subs):
     """K2 then K3 (csrc/polish_score.cu) on the tensors' CUDA device;
-    same contract as _score_edits_raw."""
+    same contract as _score_edits_raw (blen >= 0)."""
     _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs)
     tables = _tables(cand, cand_len, branches, blen, subs)
     bt = _backward_rows_cuda(cand, cand_len, branches, blen, subs, tables)
-    return _forward_scores_cuda(cand, branches, blen, bmask, subs, tables,
-                                bt)
+    return _forward_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
+                                tables, bt)
 
 
 # dynamic shared memory one block may use on an H100 (227 KB)
@@ -297,7 +351,8 @@ def _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
                          f"{_fused_smem_bytes(Cb, R, S)} B of shared "
                          f"memory, a block has {_SMEM_PER_BLOCK}")
     dev = cand.device
-    gp, sg, vgap, ds = tables
+    gp, sg, vgap = tables
+    ds = _ds(vgap)
     w = bmask.to(torch.float32)
     total = torch.empty(Bb, dtype=torch.float32, device=dev)
     del_raw = torch.empty((Cb, Bb), dtype=torch.float32, device=dev)

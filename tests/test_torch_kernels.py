@@ -6,9 +6,11 @@ no JAX (the tests' conftest imports JAX; skip it there):
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tests marked `gpu` skip without a CUDA device.  K1 and K5 must match
-bit for bit; K2+K3 rows are compared exactly, raw scores within 1e-3
-(the polisher's acceptance threshold) with the same finiteness, chars
-exactly; K4's outputs must equal K2+K3's bit for bit."""
+bit for bit; K2's rows exactly on their live region (rows below
+cand_len, columns up to blen: the rest of its output is undefined), the
+four raw score outputs of K2+K3 bit for bit, chars exactly; K4's
+outputs must equal K2+K3's bit for bit and the plain version's within
+1e-3."""
 
 import numpy as np
 import pytest
@@ -102,28 +104,82 @@ def test_chain_kernel_matches_plain(cuda_device, kind, T, M, L, max_jump):
     assert torch.equal(s_k, s_k2) and torch.equal(p_k, p_k2)
 
 
+def check_pair_bitwise(args):
+    """K2's live region against the plain rows, and K2+K3's four outputs
+    bit for bit against the plain version; two launches bitwise equal.
+    Returns (the kernels' raw outputs, the plain version's)."""
+    cand, clen, branches, blen, bmask, subs = args
+    _, R, S = branches.shape
+    tables = TP._tables(cand, clen, branches, blen, subs)
+    before = (_cuda.LAUNCHES["polish_backward"],
+              _cuda.LAUNCHES["polish_forward_score"])
+    bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs, tables)
+    raw_k = TP._forward_scores_cuda(cand, clen, branches, blen, bmask, subs,
+                                    tables, bt)
+    assert (_cuda.LAUNCHES["polish_backward"],
+            _cuda.LAUNCHES["polish_forward_score"]) == (before[0] + 1,
+                                                        before[1] + 1)
+    Bm = TP._backward_rows(cand, clen, branches, blen, subs, tables)
+    live = TP._bt_live(clen, blen, cand.shape[1], S)
+    want = Bm[:-1].permute(1, 2, 0, 3)                 # [B, R, Cb, S+1]
+    got = TP._bt_rows(bt, clen, blen, S)
+    assert TP.bitwise_equal(got[live], want[live])
+    raw_k2 = TP.score_edits_raw(*args)
+    raw_p = TP._score_edits_raw(*args)
+    for a, b, c in zip(raw_k, raw_k2, raw_p):
+        assert TP.bitwise_equal(a, b)
+        assert TP.bitwise_equal(a, c)
+    return raw_k, raw_p
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(64, 64, 8, 96), (16, 160, 8, 240),
                                    (8, 48, 3, 63), (4, 32, 8, 31)])
 def test_polish_kernels_match_plain(cuda_device, shape):
     args = [torch.from_numpy(a).to(cuda_device)
             for a in polish_inputs(sum(shape), shape)]
-    cand, clen, branches, blen, bmask, subs = args
-    tables = TP._tables(cand, clen, branches, blen, subs)
-    bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs, tables)
-    Bm = TP._backward_rows(cand, clen, branches, blen, subs, tables)
-    assert torch.equal(bt.transpose(0, 1), Bm)
-    raw_k = TP.score_edits_raw(*args)
-    raw_k2 = TP.score_edits_raw(*args)
-    assert all(torch.equal(a, b) for a, b in zip(raw_k, raw_k2))
-    raw_p = TP._score_edits_raw(*args)
-    for a, b in zip(raw_k, raw_p):
-        fa = a > -1e29
-        assert torch.equal(fa, b > -1e29)
-        assert float((a - b)[fa].abs().max()) < 1e-3
+    raw_k, raw_p = check_pair_bitwise(args)
+    cand, clen = args[0], args[1]
     fk = TP._finish_scores(cand, clen, *raw_k, groups=1)
     fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
     assert torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])
+
+
+def edge_inputs(case):
+    """Inputs of one K2/K3 edge case: (B, Cb, R, S) and lengths set so
+    that the case's rows, columns or branches sit at their limits."""
+    shapes = {"blen": (2, 24, 6, 96), "clen": (3, 20, 4, 63),
+              "branch0": (4, 24, 8, 96), "R1": (6, 20, 1, 96),
+              "R32": (2, 20, 32, 63), "S31": (8, 32, 8, 31),
+              "S63": (8, 48, 8, 63), "S96": (8, 64, 8, 96),
+              "S127": (8, 96, 8, 127), "S240": (4, 160, 8, 240)}
+    shape = shapes[case]
+    cand, clen, branches, blen, bmask, subs = polish_inputs(
+        sum(shape) + 2, shape)
+    B, Cb, R, S = shape
+    if case == "blen":      # every branch width a scan tile can meet
+        blen[:] = [0, 1, 31, 32, 33, S]
+    elif case == "clen":    # no candidate row, one, all
+        clen[:] = [0, 1, Cb]
+    elif case == "branch0":  # lanes with branch 0 the only live one
+        bmask[:2, 1:] = False
+        blen[:2, 1:] = 0
+        blen[0, 0] = S
+    elif case.startswith("S"):
+        blen[0], blen[1] = S, 0
+    return cand, clen, branches, blen, bmask, subs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["blen", "clen", "branch0", "R1", "R32",
+                                  "S31", "S63", "S96", "S127", "S240"])
+def test_polish_kernels_edge_cases_bitwise(cuda_device, case):
+    """K2+K3 at the edges of their tiling (branch widths around the
+    32-column scan, candidate lengths 0, 1 and Cb, a lane scored by
+    branch 0 alone, 1 and 32 branches, the register buckets up to S = 127
+    and a chunked one) equal the plain version bit for bit."""
+    check_pair_bitwise([torch.from_numpy(a).to(cuda_device)
+                        for a in edge_inputs(case)])
 
 
 @pytest.mark.gpu

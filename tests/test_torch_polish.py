@@ -131,3 +131,30 @@ def test_cpu_scoring_launches_no_kernel():
     before = dict(_cuda.LAUNCHES)
     TP.score_edits_raw(*(torch.from_numpy(a) for a in args))
     assert _cuda.LAUNCHES == before
+
+
+def test_plain_scores_ignore_suffix_columns_past_blen():
+    """What K2 and K3 rely on to leave those entries unwritten: the plain
+    scores do not depend on the suffix rows' columns past blen, which
+    are replaced here by other finite values in [-1e3, 0], and the rows
+    from cand_len on are the gap row sg on the columns up to blen."""
+    args = [torch.from_numpy(a) for a in _inputs(6, (6, 20, 5, 40))]
+    cand, clen, branches, blen, bmask, subs = args
+    clen[0], blen[0, :3] = 0, torch.tensor([0, 1, 40], dtype=torch.int32)
+    tables = TP._tables(cand, clen, branches, blen, subs)
+    Bm = TP._backward_rows(cand, clen, branches, blen, subs, tables)
+    rng = np.random.default_rng(6)
+    dead = torch.arange(41) > blen[:, :, None]             # [B, R, S+1]
+    noise = torch.from_numpy(
+        rng.uniform(-1e3, 0, Bm.shape).astype(np.float32))
+    Bm2 = torch.where(dead[None], noise, Bm)
+    assert not torch.equal(Bm2, Bm)
+    ref = TP._forward_scores(cand, branches, blen, bmask, subs, tables, Bm)
+    out = TP._forward_scores(cand, branches, blen, bmask, subs, tables, Bm2)
+    for r, o in zip(ref, out):
+        assert TP.bitwise_equal(r, o)
+    sg = tables[1]
+    for b in range(cand.shape[0]):
+        tail = Bm[int(clen[b]):, b]                         # [n, R, S+1]
+        assert torch.equal(torch.where(dead[b], 0.0, tail),
+                           torch.where(dead[b], 0.0, sg[b]).expand_as(tail))
