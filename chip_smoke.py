@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
                           [--phases chain,polish,lev,main,fused,hifi,
-                                    k1paths,k23paths]
+                                    k1paths,k23paths,k4paths]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
@@ -25,11 +25,13 @@ prints no result):
      exact, two launches bitwise equal, and a synthetic hill climb
      converging to the same candidates;
   4. K5 (Levenshtein) against its plain version on the card at the raw
-     path's [4096, 64], the segment buckets S = 16/64/256/1024 and the
-     HiFi path's largest batches [2^23, 64] and [2^23, 16],
-     bit-identical, on edge rows
-     (alen 0, blen 0, both 0, full length, identical strings) and
-     random and related pairs, two launches bitwise equal;
+     path's [4096, 64], the segment buckets S = 16/64/256/1024, the
+     HiFi path's largest batches [2^23, 64] and [2^23, 16], codes past
+     0-3 (4 and 255) and the widest rows, S = 16,384, bit-identical, on
+     edge rows (alen 0, blen 0, both 0, full length, identical strings,
+     alen past S) and random and related pairs, two launches bitwise
+     equal; the bound counts bit-parallel row-words, the earlier
+     per-cell bound printed beside;
   5. the raw main path, `flye_tpu_torch.main --pacbio-raw ... --device
      cuda` on a simulated 1 Mb genome at 30x, run to `assembly.fasta`:
      K1, K2, K3 and K5 must have launched and K4 not (FLYE_TPU_FUSED is
@@ -37,11 +39,13 @@ prints no result):
      ASSEMBLY_IDENTITY_FLOOR (window identity against the truth genome)
      with ASSEMBLY_CONTIGS contigs, and the assembly graph and info
      files must be non-empty;
-  6. K4 (fused polish scoring) at the buckets where `fits_fused` holds:
-     bitwise equal to K2+K3, within 1e-3 of the plain version with the
-     same finiteness, chars exact, two launches bitwise equal; the
-     dispatch takes K2+K3 where K4 does not fit; a synthetic hill climb
-     with FLYE_TPU_FUSED=1 converges to the plain climb's candidates;
+  6. K4 (fused polish scoring) at the 14 buckets the JAX package fuses
+     (FUSED_BUCKETS; `cuda_route(True, ...)` must take K4 there and
+     K2+K3 at the polisher's other buckets): all four outputs bit for
+     bit equal to K2+K3's (R <= 32) and the plain version's, chars
+     exact, two launches bitwise equal, timed beside K2+K3 and the plain
+     version; a synthetic hill climb with FLYE_TPU_FUSED=1 converges to
+     the plain climb's candidates;
   7. the HiFi path with FLYE_TPU_FUSED=1: `--pacbio-hifi` on the same
      1 Mb genome (30x, 15 kb reads, 0.5% error) to `assembly.fasta`,
      then the standalone polisher `--polish-target` on that run's
@@ -59,7 +63,11 @@ prints no result):
   9. K2 + K3 at the raw path's own launches: per (Cb, S, R, lanes) the
      inputs of the launch pair with the most live cells, held bit for
      bit against the plain version (all four outputs; K2's rows on
-     their live region), timed beside the plain version and the bounds.
+     their live region), timed beside the plain version and the bounds;
+ 10. K4 at the HiFi and polish-target runs' own launches: per run and
+     (Cb, S, R, lanes) the launch with the most live cells, bit for bit
+     against K2+K3 and the plain version, timed beside both and the
+     pair's bound.
 Phases 5 and 7 print a census of their runs: every kernel's launches
 and summed device time by shape (a pair of CUDA events right around
 each launcher call, read after the run's final synchronize; nothing on
@@ -73,7 +81,7 @@ line with each kernel's launches on both paths, and last `{"ok": true,
 "device": {...}}`.  `--main-device cpu` runs phase 5 on the CPU instead
 (how the floors were measured); `--phases` runs the build and the named
 phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7, k1paths
-8, k23paths 9).
+8, k23paths 9, k4paths 10).
 """
 
 import argparse
@@ -159,7 +167,12 @@ CAPTURES = {}   # (run tag, T, M, L) -> K1 inputs (host) and scalars
 # (Cb, S, R, lanes) -> the raw run's K2+K3 inputs (host) with the most
 # live cells at that shape
 K23_CAPTURES = {}
-K23_CAPTURE_RUN = "main"
+# (run tag, Cb, S, R, lanes) -> the same for K4 on the HiFi and
+# polish-target runs
+K4_CAPTURES = {}
+# run tag -> the launches of that run whose inputs the census keeps
+CAPTURE_KERNELS = {"main": "polish_forward_score", "hifi": "polish_fused",
+                   "hifi-pt": "polish_fused"}
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): 3.35 TB/s of
 # device memory and 67 TFLOP/s of float32 outside the tensor cores
@@ -187,9 +200,36 @@ K2_OPS_PER_CELL = 7
 # chars the edited row (2 adds, 1 max, 1 gap add) reduced for insertion
 # and substitution (2 x 4): 4 + 4 x 12.
 K3_OPS_PER_CELL = 7 + 4 + 4 * 12
-# K5, per DP cell: compare, two adds, min, minus j, the running min,
-# plus j.
+# K5, per (row of a, 32-bit word of b's columns), the bit-parallel row
+# (Myers/Hyyro), the cheapest known method, counted with the H100's
+# 3-input logic op: the match mask, Xv = Eq | Mv, Eq & Pv, its add to Pv
+# (the carry chained across words), (sum ^ Pv) | Eq, Ph = Mv | ~(Xh | Pv),
+# Mh = Pv & Xh, the two shifts (funnel shifts across words), Pv = Mh |
+# ~(Xv | Ph), Mv = Ph & Xv.  The work is sum(alen * ceil(blen / 32)) over
+# the pairs with 0 < alen <= S (`k5_work`).  The earlier bound counted 7
+# operations per DP cell (`K5_OPS_PER_CELL`, printed beside).
+K5_OPS_PER_ROW_WORD = 11
 K5_OPS_PER_CELL = 7
+
+
+def k5_work(B, S, alen, blen):
+    """(bytes, operations, DP cells) of K5 on one batch.  Bytes: the
+    lengths read and the distances written, and only where a pair's
+    distance needs its strings (0 < alen <= S, blen > 0), a[:alen] and
+    b[:blen] read once in whole 32-byte sectors, at most the row's S
+    bytes each.  Operations: the bit-parallel rows.  Cells: what the
+    earlier bound counted."""
+    a = alen.astype(np.int64)
+    b = blen.astype(np.int64)
+    live = (a > 0) & (a <= S)
+    reads = live & (b > 0)
+
+    def sectors(n):
+        return np.minimum(-(-n // 32) * 32, S)
+
+    n_bytes = 12 * B + int(((sectors(a) + sectors(b)) * reads).sum())
+    words = int((a * -(-b // 32) * live).sum())
+    return n_bytes, K5_OPS_PER_ROW_WORD * words, int((a * b).sum())
 
 
 def bound(n_bytes, n_ops, ops_per_s):
@@ -642,20 +682,25 @@ def phase_polish(report):
 
 # ---------------------------------------------------------------- phase 4
 
-def lev_inputs(B, S, seed):
+def lev_inputs(B, S, seed, codes=4):
     """Random pairs, half of them with b a 10%-mutated copy of a, and
     the edge rows first: alen 0, blen 0, both 0, both full, identical
-    full-length strings."""
+    full-length strings, alen past S.  codes > 4: the codes run over
+    0..codes-1 and every 7th base of a is 4 and every 5th of b is 255
+    (codes the segment path never makes, but the contract allows)."""
     rng = np.random.default_rng(seed)
-    a = rng.integers(0, 4, (B, S)).astype(np.uint8)
-    b = rng.integers(0, 4, (B, S)).astype(np.uint8)
+    a = rng.integers(0, codes, (B, S)).astype(np.uint8)
+    b = rng.integers(0, codes, (B, S)).astype(np.uint8)
     half = B // 2
     mut = rng.random((half, S)) < 0.1
     b[:half] = np.where(mut, b[:half], a[:half])
+    if codes > 4:
+        a[:, ::7] = 4
+        b[:, ::5] = 255
     al = rng.integers(0, S + 1, B).astype(np.int32)
     bl = rng.integers(0, S + 1, B).astype(np.int32)
-    al[:5] = [0, S, 0, S, S]
-    bl[:5] = [S, 0, 0, S, S]
+    al[:6] = [0, S, 0, S, S, S + 1]
+    bl[:6] = [S, 0, 0, S, S, S]
     b[4] = a[4]
     return a, al, b, bl
 
@@ -667,10 +712,13 @@ def phase_lev(report):
     dev = torch.device("cuda")
     per_shape = []
     # first the shape the 1 Mb raw path hands K5, then the buckets, then
-    # the HiFi path's largest shapes
-    for S, B in [(64, 4096), (16, 4096), (64, 1024), (256, 256),
-                 (1024, 64), (64, 1 << 23), (16, 1 << 23)]:
-        a, al, b, bl = lev_inputs(B, S, S + B)
+    # the HiFi path's largest shapes, then codes past 0-3 and the widest
+    # rows the kernel takes
+    for S, B, codes in [(64, 4096, 4), (16, 4096, 4), (64, 1024, 4),
+                        (256, 256, 4), (1024, 64, 4), (64, 1 << 23, 4),
+                        (16, 1 << 23, 4), (64, 4096, 256), (1024, 64, 256),
+                        (16384, 64, 4), (16384, 16, 256)]:
+        a, al, b, bl = lev_inputs(B, S, S + B, codes)
         args = [torch.from_numpy(x).to(dev) for x in (a, al, b, bl)]
         d_k = edit_distance_batch(*args)
         d_k2 = edit_distance_batch(*args)
@@ -681,20 +729,26 @@ def phase_lev(report):
                                  f"{int((d_k != d_p).sum())} pairs differ")
         if not torch.equal(d_k, d_k2):
             raise AssertionError(f"two K5 launches differ at S={S}")
-        edge = d_k[:5].tolist()
-        if edge[:3] != [S, S, 0] or edge[4] != 0:
+        edge = d_k[:6].tolist()
+        if edge[:3] != [S, S, 0] or edge[4] != 0 or edge[5] != 1 << 30:
             raise AssertionError(f"K5 edge rows at S={S}: {edge}")
-        ms = cuda_ms(lambda: edit_distance_batch(*args), 20)
+        reps = 20 if S <= 1024 else 3
+        ms = cuda_ms(lambda: edit_distance_batch(*args), reps)
         plain_ms = cuda_ms(lambda: _edit_distance_plain(*args), 1)
-        cells = int((al.astype(np.int64) * bl).sum())
-        b_ms, b_by = bound(2 * B * S + 12 * B, K5_OPS_PER_CELL * cells,
-                           INT32_OPS_PER_S)
-        print(f"[K5] S={S} B={B}: bit-identical, edge rows {edge}, "
-              f"launches bitwise equal; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, bound {b_ms:.5f} ms ({b_by}, {cells} "
+        n_bytes, ops, cells = k5_work(B, S, al, bl)
+        b_ms, b_by = bound(n_bytes, ops, INT32_OPS_PER_S)
+        old_ms, _ = bound(n_bytes, K5_OPS_PER_CELL * cells, INT32_OPS_PER_S)
+        print(f"[K5] S={S} B={B} codes<{codes}: bit-identical, edge rows "
+              f"{edge}, launches bitwise equal; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {b_ms:.5f} ms ({b_by}, "
+              f"{ops // K5_OPS_PER_ROW_WORD} row-words; the earlier "
+              f"{K5_OPS_PER_CELL}-per-cell bound {old_ms:.5f} ms, {cells} "
               "cells)", flush=True)
-        per_shape.append({"shape": [B, S], "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by})
+        per_shape.append({"shape": [B, S], "codes": codes, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "cell_bound_ms": old_ms})
+        del args, d_k, d_k2, d_p
+        torch.cuda.empty_cache()
     report["levenshtein"] = {"max_abs_err": 0, "per_shape": per_shape}
 
 
@@ -833,17 +887,15 @@ def launch_work(name, key, host, scalars):
     """(bytes, operations, their peak rate) of one launch, from its
     shape and the host copies of `launch_inputs`' tensors: K1_OPS_PER_
     PAIR per admissible pair for K1; `polish_work` for K2, K3 and K4;
-    K5_OPS_PER_CELL per DP cell for K5."""
+    `k5_work` for K5."""
     if name == "chain_dp":
         T, M, L = key
         pairs = k1_admissible_pairs(*host, scalars[1], L)
         return 16 * T * M + 4 * T, K1_OPS_PER_PAIR * pairs, INT32_OPS_PER_S
     if name == "levenshtein":
         B, S = key
-        alen, blen = host
-        return (2 * B * S + 12 * B,
-                K5_OPS_PER_CELL * int((alen.astype(np.int64) * blen).sum()),
-                INT32_OPS_PER_S)
+        n_bytes, ops, _ = k5_work(B, S, *host)
+        return n_bytes, ops, INT32_OPS_PER_S
     Cb, S, R, B = key
     if name == "polish_backward":
         lens, pick = (*host, None), 0
@@ -879,21 +931,22 @@ class Census:
     census, K2+K3 per launch pair (K3 and the K2 launch before it on its
     thread) against the pair's own bound, and keeps, per K1 shape, the
     inputs of the launch with the most admissible pairs for phase 8.
-    In the raw run (K23_CAPTURE_RUN) each K3 launch also copies its
-    candidates (and, once per tensor, its branches and table); once a
-    copy has landed (an event on the census's stream, queried, never
-    waited for) it is kept only while its launch has the most live cells
-    of its shape, so the pinned blocks of the others are reused; `finish`
-    hands the kept inputs to phase 9."""
+    In the raw run each K3 launch, and in the HiFi and polish-target
+    runs each K4 launch (CAPTURE_KERNELS), also copies its candidates
+    (and, once per tensor, its branches and table); once a copy has
+    landed (an event on the census's stream, queried, never waited for)
+    it is kept only while its launch has the most live cells of its
+    shape, so the pinned blocks of the others are reused; `finish` hands
+    the kept inputs to phase 9 (K3) and phase 10 (K4)."""
 
     def __init__(self, tag):
         self.tag = tag
         # (kernel, shape, (start, end), host copies, scalars, extra):
         # extra of K3 = {"k2": index of its K2 launch}
         self.launches = []
-        self.capture = tag == K23_CAPTURE_RUN
-        self.pending = []    # K3 captures in launch order, not yet landed
-        self.best23 = {}     # (Cb, S, R, B) -> (live cells, inputs)
+        self.capture = CAPTURE_KERNELS.get(tag)
+        self.pending = []    # captures in launch order, not yet landed
+        self.best = {}       # (Cb, S, R, B) -> (live cells, inputs)
         self.cache = {}   # (data_ptr, shape, dtype) -> (weakref, host)
         self.local = threading.local()
         self.lock = threading.Lock()
@@ -938,12 +991,12 @@ class Census:
             if name == "polish_forward_score":
                 extra = {"k2": getattr(self.local, "k2", None)}
                 self.local.k2 = None
-                if self.capture:
-                    cap = {"cand": self._to_host([args[0]])[0],
-                           "branches": self._to_host_once(args[2]),
-                           "subs": self._to_host_once(args[5])}
-                    landed = torch.cuda.Event()
-                    landed.record(self.stream)
+            if name == self.capture:
+                cap = {"cand": self._to_host([args[0]])[0],
+                       "branches": self._to_host_once(args[2]),
+                       "subs": self._to_host_once(args[5])}
+                landed = torch.cuda.Event()
+                landed.record(self.stream)
             with self.lock:
                 if name == "polish_backward":
                     self.local.k2 = len(self.launches)
@@ -957,7 +1010,7 @@ class Census:
         return launch
 
     def _keep_best(self, final=False):
-        """Under the lock: take the K3 captures whose copies have landed
+        """Under the lock: take the captures whose copies have landed
         (all of them when `final`, after the run's synchronize) and keep,
         per shape, the one with the most live cells; drop the others and
         the cached copies whose tensors have died."""
@@ -966,8 +1019,8 @@ class Census:
             clen, blen, bmask = (h.numpy() for h in host)
             cells = int((np.minimum(clen.astype(np.int64), Cb)[:, None]
                          * (np.minimum(blen, S) + 1)).sum())
-            if cells > self.best23.get((Cb, S, R, B), (-1,))[0]:
-                self.best23[(Cb, S, R, B)] = (cells, dict(
+            if cells > self.best.get((Cb, S, R, B), (-1,))[0]:
+                self.best[(Cb, S, R, B)] = (cells, dict(
                     {k: v.numpy() for k, v in cap.items()},
                     clen=clen, blen=blen, bmask=bmask))
         self.cache = {k: v for k, v in self.cache.items()
@@ -1093,9 +1146,12 @@ class Census:
                   f"{ms:.3f} ms, pair bound {b_ms:.3f} ms, "
                   f"{ms - b_ms:.3f} ms above it", flush=True)
         CENSUS[self.tag] = out + pair_rows
-        for key, (cells, cap) in self.best23.items():
-            K23_CAPTURES[key] = dict(cap, cells=cells)
-        self.best23 = {}
+        for key, (cells, cap) in self.best.items():
+            if self.capture == "polish_fused":
+                K4_CAPTURES[(self.tag, *key)] = dict(cap, cells=cells)
+            else:
+                K23_CAPTURES[key] = dict(cap, cells=cells)
+        self.best = {}
         for (T, M, L), (pairs, (cur, ext, nv), (k, mj)) in best.items():
             CAPTURES[(self.tag, T, M, L)] = {
                 "cur": cur, "ext": ext, "nvalid": nv, "k": k,
@@ -1228,74 +1284,129 @@ def phase_main(genome_mb, device):
 
 # ---------------------------------------------------------------- phase 6
 
+# the (Cb, S, R) the JAX package routes to its fused kernel under
+# FLYE_TPU_FUSED=1 among the polisher's buckets (`_pick_tile_fused` is not
+# None; tests/test_torch_fused.py holds `fits_fused` to it), each with the
+# lanes phase 6 times it at, the dominant bucket first
+FUSED_BUCKETS = (((64, 96, 8), 1024), ((32, 31, 8), 1024),
+                 ((48, 63, 8), 1024), ((96, 127, 8), 512),
+                 ((160, 240, 8), 256), ((32, 31, 16), 512),
+                 ((48, 63, 16), 512), ((64, 96, 16), 512),
+                 ((96, 127, 16), 256), ((32, 31, 32), 256),
+                 ((48, 63, 32), 256), ((64, 96, 32), 256),
+                 ((32, 31, 56), 128), ((48, 63, 56), 128))
+
+
+def k4_occupancy(Cb, R, S):
+    """K4's instantiation at a bucket: registers and spilled bytes per
+    thread, shared memory per block and resident blocks per SM."""
+    import ctypes
+    import flye_tpu_torch.ops.polish as TP
+    from flye_tpu_torch.ops import _cuda
+    fn = _cuda.lib("polish_fused").polish_fused_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_int * 4)()
+    _cuda.check(fn(Cb, R, S, TP._fused_plan(Cb, R, S)[0], buf),
+                "polish_fused_info")
+    return list(buf)
+
+
+def check_k4(tag, args, chunk=None):
+    """K4 on one batch of CUDA tensors: two launches bitwise equal, all
+    four outputs bit for bit equal to K2+K3's (where R <= 32, K2+K3's
+    domain) and to the plain version's, chars exact.  Raises otherwise.
+    Returns (tables, K4's outputs, the plain version's ms)."""
+    import torch
+    import flye_tpu_torch.ops.polish as TP
+    from flye_tpu_torch.ops import _cuda
+    cand, clen, branches, blen, bmask, subs = args
+    R = branches.shape[1]
+    tables = TP._tables(cand, clen, branches, blen, subs)
+    n0 = _cuda.LAUNCHES["polish_fused"]
+    raw_f = TP.score_edits_raw(*args, fused=True)
+    if _cuda.LAUNCHES["polish_fused"] != n0 + 1:
+        raise AssertionError(f"fused scoring did not take K4 at {tag}")
+    raw_f2 = TP._fused_scores_cuda(*args, tables)
+    if not all(TP.bitwise_equal(a, b) for a, b in zip(raw_f, raw_f2)):
+        raise AssertionError(f"two K4 launches differ at {tag}")
+    names = ("total", "del_raw", "ins4", "sub4")
+    if R <= 32:
+        raw_pair = TP._score_edits_raw_cuda(*args)
+        for name, a, b in zip(names, raw_f, raw_pair):
+            if not TP.bitwise_equal(a, b):
+                raise AssertionError(f"K4 {name} != K2+K3 at {tag}")
+        del raw_pair
+    raw_p, plain_ms = plain_pair_chunked(args, chunk or cand.shape[0])
+    for name, a, b in zip(names, raw_f, raw_p):
+        if not TP.bitwise_equal(a, b):
+            bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            raise AssertionError(f"K4 {name} != plain at {tag}: {bad} "
+                                 "entries differ")
+    fk = TP._finish_scores(cand, clen, *raw_f, groups=1)
+    fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
+    if not (torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])):
+        raise AssertionError(f"K4 chars differ at {tag}")
+    return tables, raw_f, plain_ms
+
+
+def time_k4(args, tables, reps):
+    """(K4 ms, K2+K3 ms or None where R > 32) on one batch."""
+    import flye_tpu_torch.ops.polish as TP
+    cand, clen, branches, blen, bmask, subs = args
+    ms = cuda_ms(lambda: TP._fused_scores_cuda(*args, tables), reps)
+    if branches.shape[1] > 32:
+        return ms, None
+    bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs, tables)
+    ms2, ms3 = time_k23(args, tables, bt, reps)
+    return ms, ms2 + ms3
+
+
 def phase_fused(report):
     import torch
     import flye_tpu_torch.ops.polish as TP
     from flye_tpu_torch.ops import _cuda
+    from flye_tpu_torch.polishing import polisher
     dev = torch.device("cuda")
     per_shape = []
-    err = 0.0
-    # the buckets K4 holds (fits_fused), the dominant one first
-    for (Cb, S, R), B in [((64, 96, 8), 1024), ((48, 63, 8), 1024),
-                          ((32, 31, 8), 1024)]:
-        if not TP.fits_fused(Cb, R, S):
-            raise AssertionError(f"K4 does not fit {Cb, S, R}")
+    # the route: K4 exactly where the JAX package fuses
+    fused = {shape for shape, _ in FUSED_BUCKETS}
+    for R in polisher._R_BUCKETS:
+        for Cb, S in polisher._SIZE_BUCKETS:
+            route = TP.cuda_route(True, Cb, R, S)
+            want = ("polish_fused" if (Cb, S, R) in fused
+                    else "polish_score")
+            if route != want:
+                raise AssertionError(f"cuda_route(True, {Cb, R, S}) = "
+                                     f"{route}, the JAX package: {want}")
+    print(f"[K4] route: K4 at the {len(fused)} buckets the JAX package "
+          f"fuses, K2+K3 at the other {8 * 4 - len(fused)}", flush=True)
+    for (Cb, S, R), B in FUSED_BUCKETS:
         args = [torch.from_numpy(a).to(dev)
-                for a in polish_inputs(Cb + S + 1, (B, Cb, R, S))]
+                for a in polish_inputs(Cb + S + R, (B, Cb, R, S))]
         cand, clen, branches, blen, bmask, subs = args
-        tables = TP._tables(cand, clen, branches, blen, subs)
-        n0 = _cuda.LAUNCHES["polish_fused"]
-        raw_f = TP.score_edits_raw(*args, fused=True)
-        if _cuda.LAUNCHES["polish_fused"] != n0 + 1:
-            raise AssertionError(f"fused scoring did not take K4 at "
-                                 f"{Cb, S, R}")
-        raw_f2 = TP._fused_scores_cuda(*args, tables)
-        raw_pair = TP._score_edits_raw_cuda(*args)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(raw_f, raw_f2)):
-            raise AssertionError(f"two K4 launches differ at {Cb, S, R}")
-        if not all(torch.equal(a, b) for a, b in zip(raw_f, raw_pair)):
-            raise AssertionError(f"K4 != K2+K3 at {Cb, S, R}")
-        raw_p = TP._score_edits_raw(*args)
-        e = 0.0
-        for a, b in zip(raw_f, raw_p):
-            fa = a > -1e29
-            if not torch.equal(fa, b > -1e29):
-                raise AssertionError(f"K4 finiteness differs at "
-                                     f"{Cb, S, R}")
-            if fa.any():
-                e = max(e, float((a - b)[fa].abs().max()))
-        if e > 1e-3:
-            raise AssertionError(f"K4 scores differ by {e} at {Cb, S, R}")
-        fk = TP._finish_scores(cand, clen, *raw_f, groups=1)
-        fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
-        if not (torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])):
-            raise AssertionError(f"K4 chars differ at {Cb, S, R}")
-        err = max(err, e)
-        ms = cuda_ms(lambda: TP._fused_scores_cuda(*args, tables), 3)
-        ms2 = cuda_ms(lambda: TP._backward_rows_cuda(
-            cand, clen, branches, blen, subs, tables), 3)
-        bt = TP._backward_rows_cuda(cand, clen, branches, blen, subs,
-                                    tables)
-        ms3 = cuda_ms(lambda: TP._forward_scores_cuda(
-            cand, clen, branches, blen, bmask, subs, tables, bt), 3)
-        del bt
-        plain_ms = cuda_ms(lambda: TP._forward_scores(
-            cand, branches, blen, bmask, subs, tables, TP._backward_rows(
-                cand, clen, branches, blen, subs, tables)), 1)
+        tag = f"({Cb},{S},{R}) x{B}"
+        tables, _, plain_ms = check_k4(tag, args)
+        ms, pair_ms = time_k4(args, tables, 3)
         torch.cuda.empty_cache()
         _, _, (b_ms, b_by) = polish_bounds(B, Cb, R, S, clen, blen, bmask)
-        print(f"[K4] (Cb,S,R)=({Cb},{S},{R}) x{B} lanes: == K2+K3 "
-              f"bitwise, max err vs plain {e:.2e}, chars exact, launches "
-              f"bitwise equal; K4 {ms:.3f} ms, K2+K3 {ms2 + ms3:.3f} ms "
-              f"({ms2:.3f} + {ms3:.3f}), plain {plain_ms:.1f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), shared memory "
-              f"{TP._fused_smem_bytes(Cb, R, S)} B per block", flush=True)
+        P, least = TP._fused_plan(Cb, R, S)
+        regs, spill, smem, blocks = k4_occupancy(Cb, R, S)
+        pair = "K2+K3 do not take R > 32" if pair_ms is None else \
+            f"K2+K3 {pair_ms:.3f} ms"
+        print(f"[K4] (Cb,S,R)=({Cb},{S},{R}) x{B} lanes: == K2+K3 and the "
+              f"plain version bit for bit, chars exact, launches bitwise "
+              f"equal; K4 {ms:.3f} ms, {pair}, plain {plain_ms:.1f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); P {P}, {smem} B shared memory "
+              f"(least {least}), {regs} registers, {spill} B spilled, {blocks} "
+              f"blocks per SM", flush=True)
         per_shape.append({"shape": [B, Cb, R, S], "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "pair_ms": ms2 + ms3})
-    # where K4 does not fit, the fused request takes K2+K3
-    for Cb, S, R in [(96, 127, 8), (160, 240, 8)]:
+                          "bound_by": b_by, "pair_ms": pair_ms,
+                          "regs": regs, "spill_bytes": spill,
+                          "smem": smem, "blocks_per_sm": blocks})
+    # where the JAX package does not fuse, the fused request takes K2+K3
+    for Cb, S, R in [(384, 576, 8), (96, 127, 32)]:
         args = [torch.from_numpy(a).to(dev)
                 for a in polish_inputs(Cb + S, (16, Cb, R, S))]
         before = dict(_cuda.LAUNCHES)
@@ -1305,7 +1416,7 @@ def phase_fused(report):
         if (took["polish_fused"] != 0 or took["polish_backward"] != 1
                 or took["polish_forward_score"] != 1):
             raise AssertionError(f"dispatch at {Cb, S, R}: {took}")
-    print("[K4] dispatch: K2+K3 at (96,127,8) and (160,240,8)", flush=True)
+    print("[K4] dispatch: K2+K3 at (384,576,8) and (96,127,32)", flush=True)
     # the hill climb with FLYE_TPU_FUSED=1: every lane fits K4
     before = dict(_cuda.LAUNCHES)
     os.environ["FLYE_TPU_FUSED"] = "1"
@@ -1319,7 +1430,7 @@ def phase_fused(report):
     print(f"[K4] hill climb x{B} with FLYE_TPU_FUSED=1: K4 == plain, "
           f"{fixed}/{B} bubbles restored to the truth, "
           f"{took['polish_fused']} K4 launches", flush=True)
-    report["polish_fused"] = {"max_abs_err": err, "per_shape": per_shape}
+    report["polish_fused"] = {"max_abs_err": 0, "per_shape": per_shape}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1552,8 +1663,46 @@ def phase_k23_paths(report):
                 "cells": cap["cells"]})
 
 
+# ---------------------------------------------------------------- phase 10
+
+def phase_k4_paths(report):
+    """K4 on the inputs the HiFi and polish-target runs handed it
+    (K4_CAPTURES), per run and (Cb, S, R, lanes): bit for bit against
+    K2+K3 and the plain version, timed beside K2+K3, the plain version
+    and the pair's bound."""
+    import torch
+    if not K4_CAPTURES:
+        raise AssertionError("no K4 launch was captured: run phase 7 "
+                             "first")
+    dev = torch.device("cuda")
+    report.setdefault("polish_fused", {"max_abs_err": 0, "per_shape": []})
+    for (tag, Cb, S, R, B), cap in sorted(K4_CAPTURES.items()):
+        args = [torch.from_numpy(np.ascontiguousarray(cap[k])).to(dev)
+                for k in ("cand", "clen", "branches", "blen", "bmask",
+                          "subs")]
+        # the plain version's rows at <= ~1 GB per chunk of lanes
+        chunk = max(1, (1 << 28) // ((Cb + 1) * R * (S + 1)))
+        tag_s = f"{tag} path (Cb,S,R)=({Cb},{S},{R}) x{B}"
+        tables, _, plain_ms = check_k4(tag_s, args, chunk)
+        ms, pair_ms = time_k4(args, tables, 3)
+        del tables
+        torch.cuda.empty_cache()
+        clen, blen, bmask = cap["clen"], cap["blen"], cap["bmask"]
+        b_ms, b_by = bound(*polish_work(B, Cb, R, S, clen, blen, bmask)[2],
+                           FP32_OPS_PER_S)
+        print(f"[K4] {tag_s} lanes ({cap['cells']} live cells): == K2+K3 "
+              f"and the plain version bit for bit, chars exact, launches "
+              f"bitwise equal; K4 {ms:.3f} ms, K2+K3 {pair_ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms, pair bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+        report["polish_fused"]["per_shape"].append({
+            "shape": [B, Cb, R, S], "path": tag, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "pair_ms": pair_ms, "cells": cap["cells"]})
+
+
 PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "k1paths",
-          "k23paths")
+          "k23paths", "k4paths")
 
 
 def main():
@@ -1596,7 +1745,8 @@ def main():
                       ("hifi", lambda: phase_hifi(args.hifi_plain,
                                                   args.keep_runs)),
                       ("k1paths", lambda: phase_k1_paths(report)),
-                      ("k23paths", lambda: phase_k23_paths(report))):
+                      ("k23paths", lambda: phase_k23_paths(report)),
+                      ("k4paths", lambda: phase_k4_paths(report))):
         if name in phases:
             t0 = time.perf_counter()
             out = run()

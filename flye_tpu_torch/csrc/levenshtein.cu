@@ -1,4 +1,4 @@
-// K5: batched Levenshtein distance, one warp per sequence pair.
+// K5: batched Levenshtein distance, Myers/Hyyro bit-parallel rows.
 //
 // Replaces the Pallas kernel flye_tpu/ops/align_pallas.py `_lev_kernel`
 // (called from `_edit_distance_batch_pallas`); the function is that of
@@ -7,33 +7,42 @@
 //   out[p] = Levenshtein distance of a[p, :alen[p]] and b[p, :blen[p]]
 //   (alen = 0 gives blen, blen = 0 gives alen; padded rows with both 0
 //   give 0; 0 <= blen <= S, and alen > S gives 2^30 like the plain
-//   version, whose answer row is then never reached).
+//   version, whose answer row is then never reached).  The codes are any
+//   uint8 values.
 //
-// The DP over rows i = 1..alen of the previous row `prev`:
-//   tmp[0] = i,  tmp[j] = min(prev[j-1] + (a[i-1] != b[j-1]), prev[j] + 1)
-//   row[j] = min_{k <= j} (tmp[k] - k) + j
-// so the in-row dependency (the insertion edge) is a prefix-min.
+// Bit-parallel rows.  The DP row of a[i] over b's columns 1..m (m = blen)
+// is held as two bit vectors, Pv and Mv: bit j set where D[i][j+1] -
+// D[i][j] is +1, resp. -1 (Myers 1999; Hyyro's Levenshtein form).  One
+// row of a costs ~11 word operations per 32 columns: the match mask Eq
+// of a[i] over b, an add whose carry resolves the in-row (insertion)
+// dependency, and shifts and logic.  Row 0 is Pv = all ones (D[0][j] = j),
+// and every row enters with a horizontal delta of +1 at column 0 (D[i][0]
+// = i).  After alen rows the distance is D[alen][m] = alen + the
+// vertical deltas of columns 1..m, two popcounts.  Bits past m never
+// reach them (carries and shifts only run upwards), so b's padding needs
+// no mask.
 //
-// What bounds it on an H100: integer throughput and step latency.  The least
-// time is sum(alen * blen) cells x 7 int32 operations over the card's
-// int32 rate (16.7 Tops/s); the 2*S input bytes of a pair are
-// negligible beside that (3.35 TB/s).  But the rows of one pair are a
-// chain of alen dependent steps, each of ceil(blen/32) dependent tiles
-// (a 5-step shuffle scan plus the carry), so a pair's time is a latency
-// chain and the card fills only when B is large (the S = 1024 bucket
-// comes in batches of tens of pairs).
+// Match masks.  b's bytes give three bit planes per word: bit 0 of the
+// code, bit 1, and "code >= 4".  A code c in 0..3 then has Eq = (L or ~L)
+// & (H or ~H) & ~G, two xors and one 3-input logic op; any other code
+// compares b's bytes with __vcmpeq4 (a correct general path, rare).
 //
-// Design: lane l of a warp owns the columns j = 32t + l + 1 of every
-// tile t, so no lane ever reads a row value another lane wrote; the row
-// lives in shared memory laid out tile-major (conflict-free), the pair's
-// characters are staged into shared memory once, a[i-1] is a broadcast
-// read.  Per tile, prev[j-1] comes from the neighbouring lane by a
-// shuffle (from the previous tile's last lane for lane 0, kept in a
-// register before that value is overwritten), the prefix-min runs as a
-// 5-step warp scan, and the running minimum of the tiles before is
-// carried in a register.  Only rows 1..alen and columns 1..blen are
-// computed.  Exact int32 throughout.  Making it fast (Myers/Hyyro
-// bit-parallel rows, several pairs per warp) is later work.
+// Layout.  S <= 64: a thread per pair, one word (32 bits up to S = 32,
+// else 64), 256 pairs a block; a warp runs as many rows as its longest
+// pair, so the block hands its pairs to its threads sorted by alen (a
+// counting sort in shared memory).  S > 64: G lanes per pair (G = S/64
+// rounded up to a power of two, at most 32), WPL 64-bit words per lane
+// (WPL > 1 only past S = 2048).  The word chain of a row runs up the
+// lanes as a systolic wave: at step s lane g works on row s - g, its
+// carry-in (the horizontal delta entering its first word) is lane g-1's
+// carry-out of the step before, one shuffle a step.  A pair takes alen +
+// (the lane holding column m) steps.  Each block stages its pairs'
+// strings through shared memory with 16-byte loads.
+//
+// What bounds it on an H100: at the HiFi path's [2^23, 64] batches the 2 *
+// 64 bytes a pair (1.07 GB, 0.32 ms at 3.35 TB/s) against ~11 operations
+// per row and 32-bit word (2 words a row at S = 64) and the issue of
+// the 64-bit forms of those operations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,94 +50,299 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBig = 1 << 29;        // above any distance
 constexpr int kUnreached = 1 << 30;  // the plain version's "big"
 
-__global__ void levenshtein_kernel(const uint8_t* __restrict__ a,
-                                   const int32_t* __restrict__ alen,
-                                   const uint8_t* __restrict__ b,
-                                   const int32_t* __restrict__ blen,
-                                   int32_t* __restrict__ out, int B, int S,
-                                   int words_per_warp) {
-  extern __shared__ int32_t smem[];
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * warps + warp;
-  if (p >= B) return;  // whole warp exits; no block-wide barrier below
-  const int n = alen[p];
-  const int m = blen[p];
-  if (n > S) {
-    if (lane == 0) out[p] = kUnreached;
-    return;
-  }
-  if (n == 0 || m == 0) {
-    if (lane == 0) out[p] = n + m;
-    return;
-  }
-  const int tiles = (m + 31) >> 5;
-  int32_t* row = smem + (size_t)warp * words_per_warp;  // [tiles][32]
-  uint8_t* as = (uint8_t*)(row + ((S + 31) & ~31));
-  uint8_t* bs = as + S;
-  const uint8_t* arow = a + (size_t)p * S;
-  const uint8_t* brow = b + (size_t)p * S;
-  for (int k = lane; k < n; k += 32) as[k] = arow[k];
-  for (int k = lane; k < m; k += 32) bs[k] = brow[k];
-  for (int t = 0; t < tiles; ++t) {
-    const int j = 32 * t + lane + 1;
-    row[32 * t + lane] = j <= m ? j : kBig;  // row 0: prev[j] = j
-  }
-  __syncwarp();
+// bytes (each 0 or 1) of x -> bits 0..3
+__device__ __forceinline__ uint32_t nibble(uint32_t x01) {
+  return (x01 * 0x01020408u) >> 24;
+}
 
-  for (int i = 1; i <= n; ++i) {
-    const int ai = as[i - 1];
-    int diag = i - 1;  // prev[0]
-    int carry = i;     // min_{k <= 32t} (tmp[k] - k), tmp[0] - 0 = i
-    for (int t = 0; t < tiles; ++t) {
-      const int j = 32 * t + lane + 1;
-      const bool valid = j <= m;
-      const int up = row[32 * t + lane];  // prev[j] (kBig past m)
-      int left = __shfl_up_sync(kFull, up, 1);  // prev[j-1]
-      if (lane == 0) left = diag;
-      const int sub = valid ? (bs[j - 1] != ai) : 0;
-      const int tmp = min(left + sub, up + 1);
-      int g = tmp - j;
+// b's code planes over the bits(Word) bytes at p (4-byte aligned)
+template <typename Word>
+__device__ __forceinline__ void code_planes(const uint8_t* p, Word& L,
+                                            Word& H, Word& G) {
+  constexpr int N = sizeof(Word) * 2;  // 4-byte groups
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+  L = H = G = 0;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(kFull, g, off);
-        if (lane >= off) g = min(g, o);
-      }
-      g = min(g, carry);
-      diag = __shfl_sync(kFull, up, 31);  // prev[32(t+1)], read before
-      carry = __shfl_sync(kFull, g, 31);  // any lane overwrites it
-      if (valid) row[32 * t + lane] = g + j;
+  for (int k = 0; k < N; ++k) {
+    const uint32_t x = q[k];
+    L |= (Word)nibble(x & 0x01010101u) << (4 * k);
+    H |= (Word)nibble((x >> 1) & 0x01010101u) << (4 * k);
+    G |= (Word)nibble(__vcmpne4(x & 0xfcfcfcfcu, 0u) & 0x01010101u)
+         << (4 * k);
+  }
+}
+
+// the columns of the word at p whose code is c
+template <typename Word>
+__device__ __forceinline__ Word match_mask(int c, Word L, Word H, Word G,
+                                           const uint8_t* p) {
+  if (c < 4) {
+    const Word mL = (c & 1) ? (Word)0 : ~(Word)0;
+    const Word mH = (c & 2) ? (Word)0 : ~(Word)0;
+    return (L ^ mL) & (H ^ mH) & ~G;
+  }
+  constexpr int N = sizeof(Word) * 2;
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+  const uint32_t cc = (uint32_t)c * 0x01010101u;
+  Word e = 0;
+  for (int k = 0; k < N; ++k)
+    e |= (Word)nibble(__vcmpeq4(q[k], cc) & 0x01010101u) << (4 * k);
+  return e;
+}
+
+// One row on one word, with the horizontal delta hin in {-1, 0, +1}
+// entering at its lowest column; returns the delta leaving its highest.
+template <typename Word>
+__device__ __forceinline__ int advance(Word& Pv, Word& Mv, Word Eq,
+                                       int hin) {
+  constexpr int kTop = 8 * sizeof(Word) - 1;
+  const Word neg = hin < 0 ? (Word)1 : (Word)0;
+  const Word Xv = Eq | Mv;
+  Eq |= neg;
+  const Word Xh = (((Eq & Pv) + Pv) ^ Pv) | Eq;
+  Word Ph = Mv | ~(Xh | Pv);
+  Word Mh = Pv & Xh;
+  const int hout = (int)(Ph >> kTop) - (int)(Mh >> kTop);
+  Ph = (Ph << 1) | (Word)(hin > 0);
+  Mh = (Mh << 1) | neg;
+  Pv = Mh | ~(Xv | Ph);
+  Mv = Ph & Xv;
+  return hout;
+}
+
+// threads a block: 256 with a thread per pair, else 128
+template <int G>
+__host__ __device__ constexpr int block_threads() {
+  return G == 1 ? 256 : 128;
+}
+
+// a pair's shared-memory row stride in bytes: the columns its words
+// cover, plus one 4-byte word so that the stride is an odd number of
+// words (a thread per pair reads its row's words without bank conflicts)
+template <typename Word, int G, int WPL>
+__host__ __device__ constexpr int row_stride() {
+  return 4 * (G * WPL * (int)sizeof(Word) * 2 + 1);
+}
+
+// the bits of a word below column m (m - base of them, all past kBits)
+template <typename Word>
+__device__ __forceinline__ Word low_bits(int nbits) {
+  constexpr int kBits = 8 * sizeof(Word);
+  return nbits >= kBits ? ~(Word)0
+                        : (nbits <= 0 ? (Word)0 : ((Word)1 << nbits) - 1);
+}
+
+template <typename Word>
+__device__ __forceinline__ int popc(Word x) {
+  if constexpr (sizeof(Word) == 8) {
+    return __popcll(x);
+  } else {
+    return __popc(x);
+  }
+}
+
+template <typename Word, int G, int WPL>
+__global__ void __launch_bounds__(block_threads<G>())
+    levenshtein_kernel(const uint8_t* __restrict__ a,
+                       const int32_t* __restrict__ alen,
+                       const uint8_t* __restrict__ b,
+                       const int32_t* __restrict__ blen,
+                       int32_t* __restrict__ out, int B, int S, int vec) {
+  constexpr int kThreads = block_threads<G>();
+  constexpr int PB = kThreads / G;  // pairs per block
+  constexpr int kBits = 8 * sizeof(Word);
+  constexpr int stride = row_stride<Word, G, WPL>();
+  extern __shared__ uint32_t smem[];
+  uint8_t* as = reinterpret_cast<uint8_t*>(smem);
+  uint8_t* bs = as + (size_t)PB * stride;
+  const int p0 = blockIdx.x * PB;
+  const int np = min(PB, B - p0);
+  if (vec) {  // S % 16 == 0 and both bases 16-byte aligned
+    const int vpr = S / 16;
+    const uint4* ga = reinterpret_cast<const uint4*>(a + (size_t)p0 * S);
+    const uint4* gb = reinterpret_cast<const uint4*>(b + (size_t)p0 * S);
+    for (int v = threadIdx.x; v < np * vpr; v += kThreads) {
+      const int r = v / vpr;
+      const int o = r * stride + 16 * (v - r * vpr);
+      const uint4 x = ga[v], y = gb[v];
+      uint32_t* da = reinterpret_cast<uint32_t*>(as + o);
+      uint32_t* db = reinterpret_cast<uint32_t*>(bs + o);
+      da[0] = x.x; da[1] = x.y; da[2] = x.z; da[3] = x.w;
+      db[0] = y.x; db[1] = y.y; db[2] = y.z; db[3] = y.w;
+    }
+  } else {
+    for (int v = threadIdx.x; v < np * S; v += kThreads) {
+      const int r = v / S;
+      const int o = r * stride + (v - r * S);
+      as[o] = a[(size_t)p0 * S + v];
+      bs[o] = b[(size_t)p0 * S + v];
     }
   }
-  if (lane == ((m - 1) & 31)) out[p] = row[m - 1];
+
+  if constexpr (G == 1) {
+    // A warp runs as many rows as its longest pair: hand the block's
+    // pairs to its threads in order of their rows (a counting sort; the
+    // rank within a count is arbitrary, each pair's result is its own).
+    int* count = reinterpret_cast<int*>(bs + (size_t)PB * stride);  // [66]
+    int* order = count + 66;                                        // [PB]
+    if (threadIdx.x < 66) count[threadIdx.x] = 0;
+    __syncthreads();
+    const int t = threadIdx.x;
+    int n = 0, m = 0, key = 0;
+    if (t < np) {
+      n = alen[p0 + t];
+      m = blen[p0 + t];
+      if (n > S) {
+        out[p0 + t] = kUnreached;
+      } else if (n == 0 || m == 0) {
+        out[p0 + t] = n + m;
+      } else {
+        key = n;  // 1..64
+      }
+    }
+    const int rank = atomicAdd(&count[key], 1);
+    __syncthreads();
+    if (threadIdx.x == 0) {  // exclusive prefix sums of the counts
+      int acc = 0;
+      for (int k = 0; k <= 64; ++k) {
+        const int c = count[k];
+        count[k] = acc;
+        acc += c;
+      }
+    }
+    __syncthreads();
+    order[count[key] + rank] = t;
+    __syncthreads();
+    const int q = order[threadIdx.x];
+    if (q >= np) return;
+    n = alen[p0 + q];
+    m = blen[p0 + q];
+    if (n > S || n == 0 || m == 0) return;
+    const uint8_t* arow = as + q * stride;
+    const uint8_t* brow = bs + q * stride;
+    Word L, H, Gp;
+    code_planes<Word>(brow, L, H, Gp);
+    Word Pv = ~(Word)0, Mv = 0;
+    for (int i = 0; i < n; ++i)
+      advance<Word>(Pv, Mv, match_mask<Word>(arow[i], L, H, Gp, brow), 1);
+    // D[n][m] = D[n][0] + the vertical deltas of columns 1..m
+    const Word mask = low_bits<Word>(m);
+    out[p0 + q] = n + popc(Pv & mask) - popc(Mv & mask);
+  } else {
+    __syncthreads();
+    const int pl = threadIdx.x / G;  // pair within the block
+    const int g = threadIdx.x % G;   // lane within the pair's group
+    const int p = p0 + pl;
+    int n = 0, m = 0, steps = 0;
+    if (pl < np) {
+      n = alen[p];
+      m = blen[p];
+      if (n > S) {
+        if (g == 0) out[p] = kUnreached;
+      } else if (n == 0 || m == 0) {
+        if (g == 0) out[p] = n + m;
+      } else {
+        steps = 1;
+      }
+    }
+    const uint8_t* arow = as + pl * stride;
+    const uint8_t* brow = bs + pl * stride;
+    const int wm = steps ? (m - 1) / kBits : 0;  // word holding column m
+    const int gm = wm / WPL;                     // the lane holding it
+    if (steps) steps = n + gm;
+    const int wsteps = __reduce_max_sync(kFull, steps);
+    const bool live = steps && g <= gm;
+    Word L[WPL], H[WPL], Gp[WPL], Pv[WPL], Mv[WPL];
+#pragma unroll
+    for (int w = 0; w < WPL; ++w) {
+      Pv[w] = ~(Word)0;
+      Mv[w] = 0;
+      if (live)
+        code_planes<Word>(brow + (g * WPL + w) * kBits, L[w], H[w], Gp[w]);
+    }
+    int hout = 0;
+    for (int s = 0; s < wsteps; ++s) {
+      const int up = __shfl_up_sync(kFull, hout, 1, G);
+      const int i = s - g;
+      if (live && i >= 0 && i < n) {
+        const int c = arow[i];
+        int h = g == 0 ? 1 : up;
+#pragma unroll
+        for (int w = 0; w < WPL; ++w) {
+          const int wi = g * WPL + w;
+          if (wi <= wm)
+            h = advance<Word>(
+                Pv[w], Mv[w],
+                match_mask<Word>(c, L[w], H[w], Gp[w], brow + wi * kBits), h);
+        }
+        hout = h;
+      }
+    }
+    // D[n][m] = D[n][0] + the vertical deltas of columns 1..m, summed over
+    // the pair's lanes
+    int d = 0;
+    if (live) {
+#pragma unroll
+      for (int w = 0; w < WPL; ++w) {
+        const Word mask = low_bits<Word>(m - (g * WPL + w) * kBits);
+        d += popc(Pv[w] & mask) - popc(Mv[w] & mask);
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      d += __shfl_xor_sync(kFull, d, off, G);
+    if (steps && g == 0) out[p] = n + d;
+  }
+}
+
+template <typename Word, int G, int WPL>
+int launch(const void* a, const void* alen, const void* b, const void* blen,
+           void* out, int B, int S, cudaStream_t stream) {
+  auto kern = levenshtein_kernel<Word, G, WPL>;
+  constexpr int PB = block_threads<G>() / G;
+  // both strings of each pair, then (a thread per pair) the sort's
+  // counts and order
+  const size_t smem = (size_t)2 * PB * row_stride<Word, G, WPL>() +
+                      (G == 1 ? (66 + PB) * sizeof(int) : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec = S % 16 == 0 && (uintptr_t)a % 16 == 0 &&
+                  (uintptr_t)b % 16 == 0;
+  const int grid = (B + PB - 1) / PB;
+  kern<<<grid, block_threads<G>(), smem, stream>>>(
+      (const uint8_t*)a, (const int32_t*)alen, (const uint8_t*)b,
+      (const int32_t*)blen, (int32_t*)out, B, S, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // a, b: uint8 [B, S]; alen, blen: int32 [B]; out: int32 [B] (fully
-// written).  1 <= S <= 16384 (the segment buckets go to 1024; wider
-// rows shrink the block to fit shared memory).  Returns
-// cudaGetLastError() after the launch.
+// written).  1 <= S <= 16384.  Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for S outside that range).
 extern "C" int levenshtein_launch(const void* a, const void* alen,
                                   const void* b, const void* blen, void* out,
                                   int B, int S, void* stream) {
   if (B <= 0) return 0;
-  // row (S rounded up to whole tiles) + both sequences, in 4-byte words
-  const int words = ((S + 31) & ~31) + (2 * S + 3) / 4;
-  const size_t per_warp = (size_t)words * sizeof(int32_t);
-  int warps = 4;
-  while (warps > 1 && warps * per_warp > 200 * 1024) warps >>= 1;
-  const size_t smem = warps * per_warp;
-  cudaFuncSetAttribute(levenshtein_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const int grid = (B + warps - 1) / warps;
-  levenshtein_kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)a, (const int32_t*)alen, (const uint8_t*)b,
-      (const int32_t*)blen, (int32_t*)out, B, S, words);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S < 1 || S > 16384) return (int)cudaErrorInvalidValue;
+  if (S <= 32) return launch<uint32_t, 1, 1>(a, alen, b, blen, out, B, S, st);
+  if (S <= 64) return launch<uint64_t, 1, 1>(a, alen, b, blen, out, B, S, st);
+  if (S <= 128) return launch<uint64_t, 2, 1>(a, alen, b, blen, out, B, S, st);
+  if (S <= 256) return launch<uint64_t, 4, 1>(a, alen, b, blen, out, B, S, st);
+  if (S <= 512) return launch<uint64_t, 8, 1>(a, alen, b, blen, out, B, S, st);
+  if (S <= 1024)
+    return launch<uint64_t, 16, 1>(a, alen, b, blen, out, B, S, st);
+  if (S <= 2048)
+    return launch<uint64_t, 32, 1>(a, alen, b, blen, out, B, S, st);
+  if (S <= 4096)
+    return launch<uint64_t, 32, 2>(a, alen, b, blen, out, B, S, st);
+  if (S <= 8192)
+    return launch<uint64_t, 32, 4>(a, alen, b, blen, out, B, S, st);
+  return launch<uint64_t, 32, 8>(a, alen, b, blen, out, B, S, st);
 }

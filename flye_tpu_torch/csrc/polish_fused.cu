@@ -1,249 +1,373 @@
 // K4: fused bubble-polish edit scoring, one thread block per group-lane
-// (one bubble x one group of <= 8 branches), one warp per branch.
+// (one bubble x one group of branches, up to 56), a branch on 16 lanes
+// (two a warp; 32 lanes, one a warp, past 127 columns).
 //
 // Replaces the Pallas kernel flye_tpu/ops/polish_pallas.py
 // `_fused_score_kernel` (called from `_score_edits_fused`, selected by
 // FLYE_TPU_FUSED).  Its contract is that of K2+K3 (csrc/polish_score.cu)
 // and of ops/polish.py `_score_edits_raw`:
 //   total [Bg], del_raw [Cb, Bg], ins4 [4, Cb+1, Bg], sub4 [4, Cb, Bg],
-// raw per-branch-weighted sums without the per-lane masks.
+// raw per-branch-weighted sums without the per-lane masks, equal to
+// K2+K3's bit for bit: the rows, the maxima and the fixed-order, FMA-free
+// branch sums are the same device code (polish_rows.cuh).
 //
-// One pass: the backward sweep (K2's arithmetic) writes every suffix row
-// B[i] ([R, S+1] per lane) into a shared-memory stack [Cb+1][R][S+1]
-// instead of device memory; after a barrier the forward sweep (K3's
-// arithmetic) carries the prefix row F[p] in shared memory and reads
-// B[p] and B[p+1] from the stack.  Only the four outputs touch device
-// memory besides the inputs.  The rows, the per-branch maxima and the
-// fixed-order, FMA-free branch sums are computed exactly as in K2 and K3,
-// so the outputs equal K2+K3's bit for bit.
+// One pass, nothing but the inputs and the four outputs in device memory.
+// A branch's rows live in its lanes' registers over its live region only
+// (columns 0..blen, rows below cand_len; k = ceil((blen+1)/lanes) columns
+// a lane, the loops instantiated for k = 1-4, 6, 8).  The suffix rows B[i]
+// that the scoring reads are kept in shared memory, each at the branch's
+// live width (blen+1 rounded up to 8 floats, 16-byte stores and loads),
+// each lane its own columns, so neither sweep needs a barrier.  Where the
+// whole stack does not fit the block's pool (the worst case, (Cb+1) * R *
+// (S+1) f32, is 201,760 B at (64, 96, 8)) it is checkpointed:
+//   1. the backward sweep (K2's row step, i = cand_len-1 .. 0) keeps every
+//      U-th row, B[0], B[U], B[2U], ...;
+//   2. the forward sweep takes the positions in blocks [tU, tU+U): it first
+//      recomputes B[tU+U-1] .. B[tU+1] from the checkpoint B[tU+U] (or
+//      sg, from cand_len on) into a ring of U-1 rows, then scores the
+//      block's positions against B[p] and B[p+1] as K3 does (prefix row F
+//      in registers) and advances F.
+// Each block takes the least U whose ceil(cand_len/U) + U-1 rows of its
+// own live widths fit the pool: U = 1, no recomputation, for the paths'
+// short branches.  The launch sizes the pool to the shared memory the
+// SM can spare at the occupancy the registers allow, and at least to
+// what the worst case needs at its best U (ops/polish.py `_fused_plan`:
+// 15 rows at Cb = 64 instead of 65).  A branch's 9 maxima per position
+// go to shared memory, and every P positions one block barrier lets the
+// block form the weighted branch sums (K3's flush).
 //
-// What bounds it on an H100: the same row latency chain as K2 and K3
-// (each row a serial walk over S+1 columns in 32-column tiles with a
-// 5-step shuffle scan, rows dependent on one another), now with both
-// sweeps in one block.  The stack takes (Cb+1)*R*(S+1)*4 B: 201,760 B at
-// the dominant bucket (Cb, S, R) = (64, 96, 8), so only one block fits on
-// an SM (8 warps) where K2 and K3 hold about eight.  The design trades
-// that occupancy for the B-row round trip through device memory; the
-// wrapper only takes buckets whose stack fits the 232,448 B a block may
-// use (ops/polish.py `fits_fused`), and K2+K3 run the rest.
-//
-// Not carried over from the TPU kernel: the VMEM model, U-row blocking,
-// 128-lane branch packing and the masked column writes.
+// What bounds it on an H100: instruction issue, as K3 (~30 f32
+// instructions a live cell, K2's ~8 once, or twice where rows are
+// recomputed, and the shuffle scans of the row steps), with no
+// device-memory traffic beyond the inputs and outputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "polish_rows.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+// Dynamic shared memory, f32 words first, then bytes (ops/polish.py
+// `_fused_plan` counts the same):
+//   subs [32] | vgap [Cb] | w [R] | B[0][r][0] [R] | row offsets [R] |
+//   row width, U [2] | maxima [2][P][R][9] | (16-byte aligned) the row
+//   pool [pool] | cand [Cb] u8.
+// The pool holds the block's rows: slot q < ceil(cand_len/U) is B[qU],
+// slot ceil(cand_len/U) + u-1 the ring's B[tU+u]; a slot holds every
+// branch's live columns, branch r at its offset, blen+1 rounded up to 8
+// floats wide.  Each block takes the least U whose slots fit the pool.
+__host__ __device__ inline size_t rows_offset(int Cb, int R, int P) {
+  return ((size_t)34 + Cb + 3 * R + (size_t)18 * P * R + 3) & ~(size_t)3;
+}
 
-__global__ void polish_fused_kernel(
-    const uint8_t* __restrict__ cand, const uint8_t* __restrict__ br,
-    const int32_t* __restrict__ blen, const float* __restrict__ sg,
-    const float* __restrict__ gp, const float* __restrict__ vgap,
-    const float* __restrict__ ds, const int32_t* __restrict__ clen,
-    const float* __restrict__ w, const float* __restrict__ subs,
-    float* __restrict__ total, float* __restrict__ del_raw,
-    float* __restrict__ ins4, float* __restrict__ sub4, int Bg, int Cb,
-    int R, int S) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int r = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int S1 = S + 1;
-  const size_t rowstride = (size_t)R * S1;
-  // layout: stack [Cb+1][R][S1] | F [R][S1] | Fn [R][S1] | red [R][9] |
-  // the 5x5 table (ops/polish.py _fused_smem_bytes counts the same)
-  float* stack = smem;
-  float* F = stack + (size_t)(Cb + 1) * rowstride + (size_t)r * S1;
-  float* Fn = F + rowstride;
-  float* red = stack + (size_t)(Cb + 3) * rowstride;
-  float* sub_s = red + 9 * R;
-  if (threadIdx.x < 25) sub_s[threadIdx.x] = subs[threadIdx.x];
-  __syncthreads();
-
-  const float* sgr = sg + ((size_t)b * R + r) * S1;
-  const float* gpr = gp + ((size_t)b * R + r) * S1;
-  const uint8_t* brr = br + ((size_t)b * R + r) * S;
-  int bl = blen[(size_t)b * R + r];
-  bl = bl > S ? S : bl;
-  const int cl = clen[b];
-  float* brow = stack + (size_t)r * S1;  // B[i] of this branch at i*rowstride
-  const int ntiles = (S1 + 31) / 32;
-
-  // ---- backward sweep (K2): B[Cb] = sg, then i = Cb-1 .. 0 ----
-  for (int j = lane; j < S1; j += 32) brow[(size_t)Cb * rowstride + j] = sgr[j];
-  __syncwarp();
-  for (int i = Cb - 1; i >= 0; --i) {
-    const float* nxt = brow + (size_t)(i + 1) * rowstride;
-    float* cur = brow + (size_t)i * rowstride;
-    const float* subx = sub_s + 5 * cand[(size_t)b * Cb + i];
-    const float vg = vgap[(size_t)b * Cb + i];
-    const float dsi = ds[(size_t)b * (Cb + 1) + i];
-    float carry = kNeg;
-    for (int t = ntiles - 1; t >= 0; --t) {
-      const int j = t * 32 + lane;
-      float v = kNeg, sgj = 0.f;
-      if (j < S1) {
-        sgj = sgr[j];
-        float tmp;
-        if (j < S) {
-          const float diag = j < bl ? nxt[j + 1] + subx[brr[j]] : kNeg;
-          tmp = fmaxf(diag, nxt[j] + vg);
-        } else {
-          tmp = nxt[j] + vg;
-        }
-        if (j > bl) tmp = kNeg;
-        v = tmp - sgj;
-      }
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {  // suffix max in the tile
-        const float o = __shfl_down_sync(kFull, v, off);
-        if (lane + off < 32) v = fmaxf(v, o);
-      }
-      v = fmaxf(v, carry);
-      carry = __shfl_sync(kFull, v, 0);
-      if (j < S1) {
-        float row = v + sgj;
-        if (i >= cl) row = sgj;
-        if (j > bl) row = dsi;
-        cur[j] = row;
-      }
-    }
-    __syncwarp();
+// the fewest row slots any U needs for Cb candidate rows:
+// min over U of ceil(Cb/U) + U-1
+__host__ __device__ inline int min_slots(int Cb) {
+  int best = Cb;
+  for (int U = 2; U <= Cb; ++U) {
+    const int n = (Cb + U - 1) / U + U - 1;
+    if (n < best) best = n;
   }
-  __syncthreads();  // the current score below reads every branch's B[0]
+  return best;
+}
 
-  // ---- forward sweep + scoring (K3), B rows from the stack ----
+// shared memory of a block whose pool holds `slots` rows of R branches
+// of S+1 columns
+__host__ __device__ inline size_t fused_smem(int Cb, int R, int S, int P,
+                                             int slots) {
+  return (rows_offset(Cb, R, P) + (size_t)slots * R * sector_pad(S + 1)) * 4 +
+         Cb;
+}
+
+template <int KC, int LANES, int MAXW, int MINB>
+__global__ void __launch_bounds__(32 * MAXW, MINB)
+    polish_fused_kernel(const uint8_t* __restrict__ cand,
+                        const uint8_t* __restrict__ br,
+                        const int32_t* __restrict__ blen,
+                        const float* __restrict__ sg,
+                        const float* __restrict__ gp,
+                        const float* __restrict__ vgap,
+                        const int32_t* __restrict__ clen,
+                        const float* __restrict__ w,
+                        const float* __restrict__ subs,
+                        float* __restrict__ total, float* __restrict__ del_raw,
+                        float* __restrict__ ins4, float* __restrict__ sub4,
+                        int Bg, int Cb, int R, int S, int P, int pool) {
+  extern __shared__ float smem[];
+  float* sub_s = smem;
+  float* vg_s = sub_s + 32;
+  float* w_s = vg_s + Cb;
+  float* tot_s = w_s + R;
+  int* off_s = reinterpret_cast<int*>(tot_s + R);  // [R], then W, U
+  float* red = tot_s + 2 * R + 2;  // ends at rows_offset
+  float* rows = smem + rows_offset(Cb, R, P);
+  uint8_t* cand_s = (uint8_t*)(rows + pool);
+  const int b = blockIdx.x;
+  for (int t = threadIdx.x; t < Cb; t += blockDim.x) {
+    vg_s[t] = vgap[(size_t)b * Cb + t];
+    cand_s[t] = cand[(size_t)b * Cb + t];
+  }
+  if (threadIdx.x < 25) sub_s[threadIdx.x] = subs[threadIdx.x];
+  if (threadIdx.x < R) w_s[threadIdx.x] = w[(size_t)b * R + threadIdx.x];
+  const int S1 = S + 1;
+  const Branch x = branch_of<LANES>(blen, b, R, S);
+  const int l = x.l, r = x.r, bl = x.bl;
+  const int ldb = sector_pad(bl + 1);  // packed row width (0 when idle)
+  if (l == 0 && x.active) off_s[r] = ldb;
+  int cl = clen[b];
+  cl = cl < 0 ? 0 : (cl > Cb ? Cb : cl);
+  __syncthreads();
+  if (threadIdx.x == 0) {  // row offsets, and the least U that fits
+    int W = 0;
+    for (int r2 = 0; r2 < R; ++r2) {
+      const int v = off_s[r2];
+      off_s[r2] = W;
+      W += v;
+    }
+    int U = 1;
+    while (U < cl && ((cl + U - 1) / U + U - 1) * W > pool) ++U;
+    off_s[R] = W;
+    off_s[R + 1] = U;
+  }
+  __syncthreads();
+  const size_t slot_stride = off_s[R];
+  const int U = off_s[R + 1];
+  const int nck = (cl + U - 1) / U;
+  const float* gpr = gp + x.lr * S1;
+  const float* sgr = sg + x.lr * S1;
+  const uint8_t* brr = br + x.lr * S;
+  float* mine = rows + (x.active ? off_s[r] : 0);  // idle: never touched
+  const int k = (x.blmax + LANES) / LANES;
   float xg[4];
 #pragma unroll
-  for (int x = 0; x < 4; ++x) xg[x] = sub_s[5 * x + 4];
-  for (int j = lane; j < S1; j += 32) F[j] = gpr[j];  // F[0] = gp
-  __syncwarp();
-  for (int p = 0; p <= Cb; ++p) {
-    const bool has1 = p < Cb;
-    const float* B0 = brow + (size_t)p * rowstride;
-    const float* B1 = B0 + rowstride;
-    float dmax = kNeg, imax[4], smax[4];
+  for (int y = 0; y < 4; ++y) xg[y] = sub_s[5 * y + 4];
+  // per lane, its columns: sg, gp, subs[x, br[j-1]], F[p], B[p]
+  float sgv[KC], gpv[KC], m[4][KC], F[KC], B0[KC];
+
+  // the slot of checkpoint B[tU], and of the ring's B[tU+u] (0 < u < U)
+  auto ckpt = [&](int t) { return mine + (size_t)t * slot_stride; };
+  auto ring = [&](int u) { return mine + (size_t)(nck + u - 1) * slot_stride; };
+  // B[i] into v (-1e30 past bl): sg from cand_len on, else the row at o
+  auto load_row = [&](auto kk, int i, const float* o, float(&v)[KC]) {
+    constexpr int K = decltype(kk)::value;
+    const int j0 = l * K;
+    if (i >= cl) {
 #pragma unroll
-    for (int x = 0; x < 4; ++x) imax[x] = smax[x] = kNeg;
-    for (int j = lane; j <= bl; j += 32) {
-      const float f = F[j];
-      const float b0 = B0[j];
-      const float b1 = has1 ? B1[j] : 0.f;
-      if (has1) dmax = fmaxf(dmax, f + b1);
-      const float fp = j > 0 ? F[j - 1] : 0.f;
-      const int bc = j > 0 ? brr[j - 1] : 0;
+      for (int c = 0; c < K; ++c) v[c] = j0 + c <= bl ? sgv[c] : kNeg;
+    } else {
+      load_cols<K>(o, j0, ldb, bl, v);
+    }
+  };
+  // B[i+1] in nxt -> B[i]: K2's step; its match costs subs[cand[i],
+  // br[j]] are the scoring's subs[x, br[j-1]] one column to the right
+  auto row_down = [&](auto kk, int i, float(&nxt)[KC]) {
+    constexpr int K = decltype(kk)::value;
+    float mx[KC], mc[KC];
+    pick_row<K>(cand_s[i], m, mx);
+    const float next = seg_down<LANES>(mx[0], 1);
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float sx = j == 0 ? f + xg[x]
-                                : fmaxf(fp + sub_s[5 * x + bc], f + xg[x]);
-        imax[x] = fmaxf(imax[x], sx + b0);
-        if (has1) smax[x] = fmaxf(smax[x], sx + b1);
+    for (int c = 0; c < K; ++c) mc[c] = c + 1 < K ? mx[c + 1 < K ? c + 1 : c] : next;
+    const float right = seg_down<LANES>(nxt[0], 1);
+    backward_cols<K, KC, LANES>(nxt, sgv, mc, l * K, bl, vg_s[i], right,
+                                kNeg, l);
+  };
+
+  // ---- backward sweep: keep B[0], B[U], B[2U], ... ----
+  with_k<KC>(k, [&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    const int j0 = l * K;
+    float nxt[KC];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const int j = j0 + c;
+      sgv[c] = j <= bl ? sgr[j] : 0.f;
+      gpv[c] = j <= bl ? gpr[j] : 0.f;
+      F[c] = gpv[c];    // F[0] = gp
+      nxt[c] = sgv[c];  // B[cl] = sg
+      const int bc = (j >= 1 && j <= bl) ? brr[j - 1] : 0;
+#pragma unroll
+      for (int y = 0; y < 4; ++y) m[y][c] = sub_s[5 * y + bc];
+    }
+    int t = (cl - 1) / U, u = cl - 1 - t * U;  // row i = tU + u
+    for (int i = cl - 1; i >= 0; --i) {
+      row_down(kk, i, nxt);
+      if (u == 0) {
+        store_cols<K>(ckpt(t), j0, ldb, nxt);
+        --t;
+        u = U;
       }
+      --u;
     }
+    load_row(kk, 0, ckpt(0), B0);
+  });
+
+  // ---- forward sweep, U positions a block ----
+  int buf = 0, pbase = 0;
+  for (int lo = 0, t = 0; lo <= Cb; lo += U, ++t) {
+    const int top = min(lo + U, cl);  // B[top]: a checkpoint or sg
+    if (top - 1 > lo) {
+      with_k<KC>(k, [&](auto kk) {  // B[top-1] .. B[lo+1] into the ring
+        constexpr int K = decltype(kk)::value;
+        float nxt[KC];
+        load_row(kk, top, ckpt(t + 1), nxt);
+        for (int i = top - 1; i > lo; --i) {
+          row_down(kk, i, nxt);
+          store_cols<K>(ring(i - lo), l * K, ldb, nxt);
+        }
+      });
+    }
+    const int hi = min(lo + U - 1, Cb);
+    for (int p = lo; p <= hi; ++p) {
+      const bool has1 = p < Cb;
+      float* dst = red + ((size_t)(buf * P + p - pbase) * R + r) * 9;
+      with_k<KC>(k, [&](auto kk) {
+        constexpr int K = decltype(kk)::value;
+        float B1[KC];
+        if (has1) {
+          load_row(kk, p + 1, p + 1 - lo == U ? ckpt(t + 1) : ring(p + 1 - lo),
+                   B1);
+        } else {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      dmax = fmaxf(dmax, __shfl_xor_sync(kFull, dmax, off));
+          for (int c = 0; c < K; ++c) B1[c] = B0[c];
+        }
+        float dmax = kNeg, imax[4], smax[4];
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        imax[x] = fmaxf(imax[x], __shfl_xor_sync(kFull, imax[x], off));
-        smax[x] = fmaxf(smax[x], __shfl_xor_sync(kFull, smax[x], off));
-      }
-    }
-    if (lane == 0) {
-      red[r * 9] = dmax;
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        red[r * 9 + 1 + x] = imax[x];
-        red[r * 9 + 5 + x] = smax[x];
-      }
-    }
-    __syncthreads();
-    const int q = threadIdx.x;
-    if (q < 9 && (has1 || (q >= 1 && q <= 4))) {
-      // weighted branch sum in a fixed order; no FMA contraction
-      float acc = 0.f;
-      for (int r2 = 0; r2 < R; ++r2)
-        acc = __fadd_rn(acc, __fmul_rn(w[(size_t)b * R + r2],
-                                       red[r2 * 9 + q]));
-      if (q == 0) {
-        del_raw[(size_t)p * Bg + b] = acc;
-      } else if (q <= 4) {
-        ins4[((size_t)(q - 1) * (Cb + 1) + p) * Bg + b] = acc;
-      } else {
-        sub4[((size_t)(q - 5) * Cb + p) * Bg + b] = acc;
-      }
-    }
-    if (p == 0 && q == 9) {  // current score: sum_r w_r * B[0][r][0]
-      float acc = 0.f;
-      for (int r2 = 0; r2 < R; ++r2)
-        acc = __fadd_rn(acc, __fmul_rn(w[(size_t)b * R + r2],
-                                       stack[(size_t)r2 * S1]));
-      total[b] = acc;
-    }
-    if (has1) {  // F[p] -> F[p+1]
-      const float* subx = sub_s + 5 * cand[(size_t)b * Cb + p];
-      const float vg = vgap[(size_t)b * Cb + p];
-      float carry = kNeg;
-      for (int t = 0; t < ntiles; ++t) {
-        const int j = t * 32 + lane;
-        float v = kNeg, gpj = 0.f;
-        if (j < S1) {
-          gpj = gpr[j];
-          const float tmp =
-              j == 0 ? F[0] + vg
-                     : fmaxf(F[j - 1] + subx[brr[j - 1]], F[j] + vg);
-          v = tmp - gpj;
+        for (int y = 0; y < 4; ++y) imax[y] = smax[y] = kNeg;
+        float fl = seg_up<LANES>(F[K - 1], 1);
+        if (l == 0) fl = kNeg;
+        score_cols<K>(F, fl, B0, B1, m, xg, dmax, imax, smax);
+        if (p == 0 && l == 0 && x.active) tot_s[r] = B0[0];
+        reduce_maxima<LANES>(dmax, imax, smax, dst, l, x.active);
+        if (has1) {
+          float mc[KC];
+          pick_row<K>(cand_s[p], m, mc);
+          forward_cols<K, KC, LANES>(F, fl, gpv, mc, vg_s[p], kNeg, l);
         }
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {  // prefix max in tile
-          const float o = __shfl_up_sync(kFull, v, off);
-          if (lane >= off) v = fmaxf(v, o);
-        }
-        v = fmaxf(v, carry);
-        carry = __shfl_sync(kFull, v, 31);
-        if (j < S1) Fn[j] = v + gpj;
+        for (int c = 0; c < K; ++c) B0[c] = B1[c];
+      });
+      if (p - pbase == P - 1 || p == Cb) {
+        flush_sums(red + (size_t)buf * P * R * 9, w_s, tot_s, pbase,
+                   p - pbase + 1, b, Bg, Cb, R, total, del_raw, ins4, sub4);
+        buf ^= 1;
+        pbase = p + 1;
       }
-      __syncwarp();
-      float* tmpp = F;
-      F = Fn;
-      Fn = tmpp;
     }
-    __syncthreads();  // red[] is rewritten at the next position
   }
+}
+
+template <int KC, int LANES, int MAXW, int MINB>
+struct Cfg {
+  static constexpr int kc = KC;
+  static constexpr int lanes = LANES;
+  static constexpr int maxw = MAXW;
+  static constexpr int minb = MINB;
+};
+
+// The instantiation for a bucket: columns per lane and lanes per branch by
+// S, the block bound by R.  Returns cudaErrorInvalidValue where none
+// takes it; every bucket ops/polish.py `fits_fused` admits has one.
+template <typename Fn>
+int dispatch(int R, int S, Fn&& fn) {
+  if (R < 1) return (int)cudaErrorInvalidValue;
+  if (S + 1 <= 32) {
+    if (R <= 8) return fn(Cfg<2, 16, 4, 4>());
+    if (R <= 32) return fn(Cfg<2, 16, 16, 1>());
+    if (R <= 56) return fn(Cfg<2, 16, 28, 1>());
+  } else if (S + 1 <= 64) {
+    if (R <= 8) return fn(Cfg<4, 16, 4, 4>());
+    if (R <= 32) return fn(Cfg<4, 16, 16, 1>());
+    if (R <= 56) return fn(Cfg<4, 16, 28, 1>());
+  } else if (S + 1 <= 128) {
+    if (R <= 8) return fn(Cfg<8, 16, 4, 4>());
+    if (R <= 32) return fn(Cfg<8, 16, 16, 1>());
+  } else if (S + 1 <= 256) {
+    if (R <= 8) return fn(Cfg<8, 32, 8, 2>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename C>
+int block_threads(int R) {
+  return C::lanes == 16 ? 32 * ((R + 1) / 2) : 32 * R;
+}
+
+// A block's dynamic shared memory: as much as the blocks its registers
+// let an SM hold can share (H100: 65,536 registers, 233,472 B with 1,024
+// reserved a block, 227 KB at most a block), within the least the worst
+// case needs and the whole stack (U = 1 for any lengths).  0 where even
+// the least does not fit.
+template <typename C>
+size_t block_smem(const void* kern, int Cb, int R, int S, int P) {
+  const size_t least = fused_smem(Cb, R, S, P, min_slots(Cb));
+  if (least > 232448) return 0;
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, kern) != cudaSuccess) return least;
+  const int warps = block_threads<C>(R) / 32;
+  const int per_warp = (a.numRegs * 32 + 255) / 256 * 256;
+  int blocks = 65536 / (per_warp * warps);
+  blocks = blocks < 1 ? 1 : blocks;
+  if (blocks > 64 / warps) blocks = 64 / warps;
+  size_t target = 233472 / blocks - 1024;
+  if (target > 232448) target = 232448;
+  const size_t full = fused_smem(Cb, R, S, P, Cb);
+  size_t smem = full < target ? full : target;
+  return smem > least ? smem : least;
 }
 
 }  // namespace
 
 // Shapes (all contiguous, on one device):
-//   cand u8 [Bg, Cb]; br u8 [Bg, R, S]; blen i32 [Bg, R];
-//   sg, gp f32 [Bg, R, S+1]; vgap f32 [Bg, Cb]; ds f32 [Bg, Cb+1];
-//   clen i32 [Bg]; w f32 [Bg, R]; subs f32 [5, 5];
+//   cand u8 [Bg, Cb]; br u8 [Bg, R, S]; blen i32 [Bg, R] (>= 0);
+//   sg, gp f32 [Bg, R, S+1]; vgap f32 [Bg, Cb]; clen i32 [Bg];
+//   w f32 [Bg, R]; subs f32 [5, 5];
 //   total [Bg], del_raw [Cb, Bg], ins4 [4, Cb+1, Bg], sub4 [4, Cb, Bg].
-// 1 <= R <= 32; smem_bytes is the block's dynamic shared memory, from
-// ops/polish.py `_fused_smem_bytes(Cb, R, S)`.  Returns cudaGetLastError()
-// after the launch (a block that asks for more shared memory than the
-// card allows is refused there).
+// P: positions per maxima buffer (ops/polish.py `_fused_plan`).  Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue where no
+// instantiation takes (R, S) or its least shared memory exceeds a block's.
 extern "C" int polish_fused_launch(const void* cand, const void* br,
                                    const void* blen, const void* sg,
                                    const void* gp, const void* vgap,
-                                   const void* ds, const void* clen,
-                                   const void* w, const void* subs,
-                                   void* total, void* del_raw, void* ins4,
-                                   void* sub4, int Bg, int Cb, int R, int S,
-                                   int smem_bytes, void* stream) {
+                                   const void* clen, const void* w,
+                                   const void* subs, void* total,
+                                   void* del_raw, void* ins4, void* sub4,
+                                   int Bg, int Cb, int R, int S, int P,
+                                   void* stream) {
   if (Bg <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      polish_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  polish_fused_kernel<<<Bg, 32 * R, smem_bytes, (cudaStream_t)stream>>>(
-      (const uint8_t*)cand, (const uint8_t*)br, (const int32_t*)blen,
-      (const float*)sg, (const float*)gp, (const float*)vgap,
-      (const float*)ds, (const int32_t*)clen, (const float*)w,
-      (const float*)subs, (float*)total, (float*)del_raw, (float*)ins4,
-      (float*)sub4, Bg, Cb, R, S);
-  return (int)cudaGetLastError();
+  if (P < 1 || Cb < 0) return (int)cudaErrorInvalidValue;
+  return dispatch(R, S, [&](auto cfg) {
+    using C = decltype(cfg);
+    auto kern = polish_fused_kernel<C::kc, C::lanes, C::maxw, C::minb>;
+    const size_t smem = block_smem<C>((const void*)kern, Cb, R, S, P);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    const int pool = (int)((smem - Cb) / 4 - rows_offset(Cb, R, P));
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kern<<<Bg, block_threads<C>(R), smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)cand, (const uint8_t*)br, (const int32_t*)blen,
+        (const float*)sg, (const float*)gp, (const float*)vgap,
+        (const int32_t*)clen, (const float*)w, (const float*)subs,
+        (float*)total, (float*)del_raw, (float*)ins4, (float*)sub4, Bg, Cb,
+        R, S, P, pool);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The instantiation a bucket takes: out[0..3] = registers per thread,
+// spilled (local) bytes per thread, dynamic shared memory per block (as
+// the launch sizes it), resident blocks per SM.  Returns a CUDA error
+// code.
+extern "C" int polish_fused_info(int Cb, int R, int S, int P, int* out) {
+  return dispatch(R, S, [&](auto cfg) {
+    using C = decltype(cfg);
+    const void* kern =
+        (const void*)polish_fused_kernel<C::kc, C::lanes, C::maxw, C::minb>;
+    const size_t smem = block_smem<C>(kern, Cb, R, S, P);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    return kernel_info(kern, smem, block_threads<C>(R), out);
+  });
 }

@@ -57,6 +57,9 @@
 // suffix rows B[p+1] .. B[p+4] in flight while it scores position p
 // (cp.async into a shared-memory ring, each lane its own columns).
 //
+// The row steps, the reduction of the maxima and the branch sums are
+// device code shared with K4 (polish_rows.cuh).
+//
 // K3 reduces a branch's 9 maxima per position inside its half-warp (a
 // transposed butterfly: 4 shuffles for the 8 character maxima, 4 for the
 // deletion, both branches of the warp at once) and stores them in shared
@@ -76,10 +79,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "polish_rows.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLanes = 16;      // lanes per branch: two branches a warp
 constexpr int kRedCells = 512;  // positions x branches per maxima buffer
 constexpr int kAhead = 4;       // K3's suffix rows in flight per branch
@@ -89,9 +92,6 @@ __host__ __device__ inline int red_positions(int R) {
   const int p = kRedCells / R;
   return p > 64 ? 64 : (p < 1 ? 1 : p);
 }
-
-// n rounded up to whole 32-byte sectors of f32
-__host__ __device__ inline int sector_pad(int n) { return (n + 7) & ~7; }
 
 // columns per lane held in registers: 2 up to S = 31, else 4
 __host__ __device__ inline int lane_cols(int S) {
@@ -108,211 +108,6 @@ __host__ __device__ inline int chunk_row_width(int S) {
 
 __host__ __device__ inline size_t rows_floats(int R, int S) {
   return (size_t)2 * ((R + 1) / 2) * chunk_row_width(S);
-}
-
-template <int N>
-struct Int {
-  static constexpr int value = N;
-};
-
-// fn(Int<k>()) for a warp's columns per lane k in 1..KC, so that every
-// loop over a lane's columns runs exactly k times
-template <int KC, typename Fn>
-__device__ __forceinline__ void with_k(int k, Fn&& fn) {
-  if (k <= 1) {
-    fn(Int<1>());
-  } else if (k == 2 || KC == 2) {
-    fn(Int<(KC >= 2 ? 2 : 1)>());
-  } else if (k == 3 && KC >= 3) {
-    fn(Int<(KC >= 3 ? 3 : 1)>());
-  } else {
-    fn(Int<KC>());
-  }
-}
-
-// Store a lane's K columns j0 .. j0+K-1 into a packed row of bt: one
-// 16-byte (K = 4) or 8-byte (K = 2) store, aligned since every packed
-// row starts on a sector, K scalar ones otherwise.  A packed row holds
-// whole sectors, so the vector store stays inside it.
-template <int K, int KC>
-__device__ __forceinline__ void store_cols(float* o, int j0, int ldb,
-                                           const float (&v)[KC]) {
-  if (j0 >= ldb) return;
-  if constexpr (K == 4) {
-    *reinterpret_cast<float4*>(o + j0) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (K == 2) {
-    *reinterpret_cast<float2*>(o + j0) = make_float2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < K; ++c)
-      if (j0 + c < ldb) o[j0 + c] = v[c];
-  }
-}
-
-// shuffles within a branch's 16 lanes (a lane past either end gets its
-// own value back)
-__device__ __forceinline__ float seg_up(float v, int d) {
-  return __shfl_up_sync(kFull, v, d, kLanes);
-}
-__device__ __forceinline__ float seg_down(float v, int d) {
-  return __shfl_down_sync(kFull, v, d, kLanes);
-}
-__device__ __forceinline__ float seg_at(float v, int src) {
-  return __shfl_sync(kFull, v, src, kLanes);
-}
-
-// One K2 row on the columns j0 .. j0+K-1 of each lane.  nxt holds
-// B[i+1] there and becomes B[i]; right = B[i+1][j0+K]; carry = the
-// suffix max of the columns right of this chunk.  Returns the suffix max
-// of the chunk and all right of it (uniform over the branch's lanes).
-template <int K, int KC>
-__device__ __forceinline__ float backward_cols(float (&nxt)[KC],
-                                               const float (&sgv)[KC],
-                                               const float (&mc)[KC], int j0,
-                                               int bl, float vg, float right,
-                                               float carry, int l16) {
-  float v[K];
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const int j = j0 + c;
-    const float nr = c + 1 < K ? nxt[c + 1 < K ? c + 1 : c] : right;
-    float tmp = nxt[c] + vg;
-    if (j < bl) tmp = fmaxf(nr + mc[c], tmp);
-    v[c] = j <= bl ? tmp - sgv[c] : kNeg;
-  }
-#pragma unroll
-  for (int c = K - 2; c >= 0; --c) v[c] = fmaxf(v[c], v[c + 1]);
-  float incl = v[0];
-#pragma unroll
-  for (int off = 1; off < kLanes; off <<= 1)
-    incl = fmaxf(incl, seg_down(incl, off));
-  incl = fmaxf(incl, carry);
-  float excl = seg_down(incl, 1);
-  if (l16 == kLanes - 1) excl = carry;
-#pragma unroll
-  for (int c = 0; c < K; ++c) nxt[c] = fmaxf(v[c], excl) + sgv[c];
-  return seg_at(incl, 0);
-}
-
-// Accumulate position p's maxima over the columns of each lane.  fl =
-// F[p][j0-1] (-1e30 at column 0); B0 and B1 hold -1e30 past bl.
-template <int K, int KC>
-__device__ __forceinline__ void score_cols(
-    const float (&F)[KC], float fl, const float (&B0)[KC],
-    const float (&B1)[KC], const float (&m)[4][KC], const float (&xg)[4],
-    float& dmax, float (&imax)[4], float (&smax)[4]) {
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const float f = F[c];
-    const float fp = c == 0 ? fl : F[c == 0 ? 0 : c - 1];
-    dmax = fmaxf(dmax, f + B1[c]);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const float sx = fmaxf(fp + m[x][c], f + xg[x]);
-      imax[x] = fmaxf(imax[x], sx + B0[c]);
-      smax[x] = fmaxf(smax[x], sx + B1[c]);
-    }
-  }
-}
-
-// F[p] -> F[p+1] on the columns of each lane.  mc = subs[cand[p],
-// br[j-1]]; fl as in score_cols; carry = the prefix max of the columns
-// left of this chunk.  Returns the prefix max through this chunk.
-template <int K, int KC>
-__device__ __forceinline__ float forward_cols(float (&F)[KC], float fl,
-                                              const float (&gpv)[KC],
-                                              const float (&mc)[KC],
-                                              float vg, float carry,
-                                              int l16) {
-  float v[K];
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const float fp = c == 0 ? fl : F[c == 0 ? 0 : c - 1];
-    v[c] = fmaxf(fp + mc[c], F[c] + vg) - gpv[c];
-  }
-#pragma unroll
-  for (int c = 1; c < K; ++c) v[c] = fmaxf(v[c], v[c - 1]);
-  float incl = v[K - 1];
-#pragma unroll
-  for (int off = 1; off < kLanes; off <<= 1)
-    incl = fmaxf(incl, seg_up(incl, off));
-  incl = fmaxf(incl, carry);
-  float excl = seg_up(incl, 1);
-  if (l16 == 0) excl = carry;
-#pragma unroll
-  for (int c = 0; c < K; ++c) F[c] = fmaxf(v[c], excl) + gpv[c];
-  return seg_at(incl, kLanes - 1);
-}
-
-// Reduce each branch's 9 maxima over its 16 lanes and store them at
-// dst[0..8] (deletion, 4 insertions, 4 substitutions).  The 8 character
-// maxima go through a transposed butterfly: at each step a lane keeps
-// half of its values and trades the other half with its partner, so that
-// after three steps lane l holds value l >> 1 and one more finishes it.
-__device__ __forceinline__ void reduce_maxima(float dmax,
-                                              const float (&imax)[4],
-                                              const float (&smax)[4],
-                                              float* dst, int l16,
-                                              bool active) {
-  const bool h8 = l16 & 8, h4 = l16 & 4, h2 = l16 & 2;
-  float u[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float send = h8 ? imax[i] : smax[i];
-    const float keep = h8 ? smax[i] : imax[i];
-    u[i] = fmaxf(keep, __shfl_xor_sync(kFull, send, 8));
-  }
-  float t[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = h4 ? u[i] : u[i + 2];
-    const float keep = h4 ? u[i + 2] : u[i];
-    t[i] = fmaxf(keep, __shfl_xor_sync(kFull, send, 4));
-  }
-  const float send = h2 ? t[0] : t[1];
-  const float keep = h2 ? t[1] : t[0];
-  float s = fmaxf(keep, __shfl_xor_sync(kFull, send, 2));
-  s = fmaxf(s, __shfl_xor_sync(kFull, s, 1));
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    dmax = fmaxf(dmax, __shfl_xor_sync(kFull, dmax, off));
-  if (active) {
-    if ((l16 & 1) == 0) dst[1 + (l16 >> 1)] = s;
-    if (l16 == 1) dst[0] = dmax;
-  }
-}
-
-// After a block barrier: the weighted branch sums of positions pbase ..
-// pbase+npos-1 from their maxima redb [npos][R][9], in branch order as
-// the plain version (s_0*w_0 + s_1*w_1 + ..., no FMA contraction).
-__device__ void flush_sums(const float* redb, const float* w_s,
-                           const float* tot_s, int pbase, int npos, int b,
-                           int Bg, int Cb, int R, float* total,
-                           float* del_raw, float* ins4, float* sub4) {
-  __syncthreads();
-  for (int it = threadIdx.x; it < npos * 9; it += blockDim.x) {
-    const int pp = it / 9;
-    const int q = it - pp * 9;
-    const int p = pbase + pp;
-    if (p == Cb && (q == 0 || q >= 5)) continue;
-    const float* s = redb + (size_t)pp * R * 9 + q;
-    float acc = __fmul_rn(s[0], w_s[0]);
-    for (int r2 = 1; r2 < R; ++r2)
-      acc = __fadd_rn(acc, __fmul_rn(s[(size_t)r2 * 9], w_s[r2]));
-    if (q == 0) {
-      del_raw[(size_t)p * Bg + b] = acc;
-    } else if (q <= 4) {
-      ins4[((size_t)(q - 1) * (Cb + 1) + p) * Bg + b] = acc;
-    } else {
-      sub4[((size_t)(q - 5) * Cb + p) * Bg + b] = acc;
-    }
-  }
-  if (pbase == 0 && threadIdx.x == 0) {  // sum_r w_r * B[0][r][0]
-    float acc = __fmul_rn(tot_s[0], w_s[0]);
-    for (int r2 = 1; r2 < R; ++r2)
-      acc = __fadd_rn(acc, __fmul_rn(tot_s[r2], w_s[r2]));
-    total[b] = acc;
-  }
 }
 
 // Dynamic shared memory, f32 words first, then bytes:
@@ -334,31 +129,6 @@ __host__ __device__ inline size_t forward_smem(int Cb, int R, int S) {
           ring_floats(R, S)) *
              4 +
          (size_t)Cb;
-}
-
-// The branch this thread works on (two a warp, 16 lanes each): its
-// index r (>= R: an idle half-warp), live width bl (-1 when idle) and
-// the longer of the two branches of its warp.
-struct Branch {
-  int l16, r, bl, blmax;
-  bool active;
-  size_t lr;
-};
-
-__device__ __forceinline__ Branch branch_of(const int32_t* blen, int b,
-                                            int R, int S) {
-  Branch x;
-  x.l16 = threadIdx.x & (kLanes - 1);
-  x.r = threadIdx.x / kLanes;
-  x.active = x.r < R;
-  x.lr = (size_t)b * R + (x.active ? x.r : 0);
-  x.bl = -1;
-  if (x.active) {
-    const int v = blen[x.lr];
-    x.bl = v < 0 ? 0 : (v > S ? S : v);
-  }
-  x.blmax = max(x.bl, __shfl_xor_sync(kFull, x.bl, kLanes));
-  return x;
 }
 
 template <int KC, bool CHUNKED, int MAXW>
@@ -388,7 +158,7 @@ __global__ void __launch_bounds__(32 * MAXW, MAXW == 4 ? 10 : 1)
 
   const int S1 = S + 1;
   const Branch x = branch_of(blen, b, R, S);
-  const int l16 = x.l16, bl = x.bl;
+  const int l16 = x.l, bl = x.bl;
   int cl = clen[b];
   cl = cl < 0 ? 0 : (cl > Cb ? Cb : cl);
   const float* sgr = sg + x.lr * S1;
@@ -489,7 +259,7 @@ __global__ void __launch_bounds__(32 * MAXW, MAXW == 4 ? 4 : 1)
 
   const int S1 = S + 1;
   const Branch x = branch_of(blen, b, R, S);
-  const int l16 = x.l16, r = x.r, bl = x.bl;
+  const int l16 = x.l, r = x.r, bl = x.bl;
   int cl = clen[b];
   cl = cl < 0 ? 0 : (cl > Cb ? Cb : cl);
   const float* gpr = gp + x.lr * S1;
@@ -648,28 +418,6 @@ int dispatch(int R, int S, Fn&& fn) {
 
 inline int block_threads(int R) { return 32 * ((R + 1) / 2); }
 
-// registers, spilled bytes, dynamic shared memory and resident blocks per
-// SM of a kernel instantiation at its block of block_threads(R) threads
-int kernel_info(const void* kern, size_t smem, int R, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kern);
-  if (e != cudaSuccess) return (int)e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
-                                                    block_threads(R), smem);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)smem;
-  out[3] = blocks;
-  return 0;
-}
-
 }  // namespace
 
 // Shapes (all contiguous, on one device):
@@ -740,9 +488,9 @@ extern "C" int polish_score_info(int which, int Cb, int R, int S, int* out) {
     if (which == 2)
       return kernel_info(
           (const void*)polish_backward_kernel<C::kc, C::chunked, C::maxw>,
-          backward_smem(Cb, R, S), R, out);
+          backward_smem(Cb, R, S), block_threads(R), out);
     return kernel_info(
         (const void*)polish_forward_score_kernel<C::kc, C::chunked, C::maxw>,
-        forward_smem(Cb, R, S), R, out);
+        forward_smem(Cb, R, S), block_threads(R), out);
   });
 }

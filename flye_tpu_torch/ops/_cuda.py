@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -66,11 +67,21 @@ def _so_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
-def _stale(name: str) -> bool:
-    so = _so_path(name)
+def _sources(name: str) -> list:
+    """csrc/<name>.cu and the headers of csrc it includes ("...")."""
     src = os.path.join(CSRC, f"{name}.cu")
+    with open(src) as f:
+        heads = re.findall(r'^#include "([^"]+)"', f.read(), re.M)
+    return [src] + [os.path.join(CSRC, h) for h in heads]
+
+
+def _stale(name: str) -> bool:
+    """Whether the library of csrc/<name>.cu is missing or older than
+    its source or a header it includes."""
+    so = _so_path(name)
     return (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(src))
+            or any(os.path.getmtime(so) < os.path.getmtime(p)
+                   for p in _sources(name)))
 
 
 def build(names: Iterable[str]) -> None:

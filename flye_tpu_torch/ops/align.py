@@ -33,8 +33,8 @@ from flye_tpu_torch.ops import _cuda
 
 # segment-length buckets
 SEGMENT_BUCKETS = (16, 64, 256, 1024)
-# widest rows the kernel takes (one warp's row + characters must fit in
-# shared memory)
+# widest rows the kernel takes (a pair on a warp's 32 lanes of eight
+# 64-bit words each)
 _MAX_WIDTH = 16384
 
 

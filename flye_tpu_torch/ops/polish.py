@@ -22,11 +22,14 @@ tensor, chosen by shape alone (`cuda_route`):
     memory, K3 reads it back beside the forward rows and scores; each
     branch's row sits in its warp's registers;
   - K4, `csrc/polish_fused.cu`: both sweeps in one kernel, the suffix
-    rows kept in a shared-memory stack.  Taken when the caller asks
-    for it (`fused`; `polish_bubbles` reads FLYE_TPU_FUSED, as the JAX
-    package does, off by default) and the stack fits a block's shared
-    memory (`fits_fused`: the buckets up to (Cb, S) = (64, 96) at
-    8 branches).  K4's outputs equal K2+K3's bit for bit.
+    rows kept in shared memory (every U-th, and the rows between
+    recomputed, where the whole stack does not fit).
+    Taken when the caller asks for it (`fused`; `polish_bubbles` reads
+    FLYE_TPU_FUSED, as the JAX package does, off by default) at the
+    buckets the JAX package routes to its fused kernel (`fits_fused`,
+    its `_pick_tile_fused` rule: up to (Cb, S) = (160, 240) at 8
+    branches, (48, 63) at 56).  K4's outputs equal K2+K3's bit for
+    bit.
 On the CPU, `polish_bubbles` hands the whole climb to the threaded
 native climber by default, as the JAX package does.
 
@@ -200,7 +203,8 @@ def _score_edits_raw(cand, cand_len, branches, blen, bmask, subs):
     return _forward_scores(cand, branches, blen, bmask, subs, tables, Bm)
 
 
-def _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs):
+def _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs,
+                       max_r=32):
     Bb, Cb = cand.shape
     _, R, S = branches.shape
     dev = cand.device
@@ -212,8 +216,9 @@ def _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs):
             (bmask, "bmask", torch.bool, (Bb, R)),
             (subs, "subs", torch.float32, (5, 5))):
         _cuda.require(t, name, dt, shape, dev)
-    if not 1 <= R <= 32:
-        raise ValueError(f"{R} branches per lane; the kernels take 1..32")
+    if not 1 <= R <= max_r:
+        raise ValueError(f"{R} branches per lane; the kernels take "
+                         f"1..{max_r}")
 
 
 def _bt_pad(n):
@@ -315,27 +320,54 @@ def _score_edits_raw_cuda(cand, cand_len, branches, blen, bmask, subs):
                                 tables, bt)
 
 
-# dynamic shared memory one block may use on an H100 (227 KB)
-_SMEM_PER_BLOCK = 232448
+def _tpu_fuses(Cb: int, R: int, S: int) -> bool:
+    """The JAX package's routing rule for its fused kernel: whether
+    `flye_tpu/ops/polish_pallas.py` `_pick_tile_fused(Rp, W, Cb+1)`
+    finds a batch tile, i.e. whether its working-set model
+    (`_fused_vmem_bytes`) fits 13 MiB of VMEM at the smallest tile, 8.
+    Rp and W are its `_kernel_dims(R, S)`: 4 (S+1 <= 32) or 2 (S+1 <=
+    64) branches packed per 128-lane row, else one branch per row of
+    S+1 rounded up to 128 lanes, and the branch rows rounded up to 8."""
+    pack = 4 if S + 1 <= 32 else (2 if S + 1 <= 64 else 1)
+    rows = -(-R // pack)
+    Rp = -(-rows // 8) * 8
+    W = 128 if pack > 1 else -(-(S + 1) // 128) * 128
+    tile, C1 = 8, Cb + 1
+    need = ((C1 + 1 + 22 + 8) * tile * Rp * W * 4 + 30 * tile * C1 * 4
+            + 2048 * tile)
+    return need <= 13 * 1024 * 1024
+
+
+def _fused_plan(Cb: int, R: int, S: int):
+    """(P, least shared-memory bytes) of a K4 block (csrc/polish_fused.cu's
+    layout): P positions per buffer of branch maxima (two buffers); the
+    pool of suffix rows, S+1 rounded up to 8 floats a branch, holding at
+    least the fewest rows any checkpoint stride U needs in the worst
+    case, min over U of ceil(Cb/U) checkpoints and a ring of U-1.  The
+    launch gives a block more where the SM has it to spare, and each
+    block takes the least U its own lengths allow."""
+    P = min(32, max(4, 64 // max(R, 1)))
+    slots = min(-(-Cb // u) + u - 1 for u in range(1, max(Cb, 1) + 1))
+    head = (34 + Cb + 3 * R + 18 * P * R + 3) // 4 * 4
+    return P, 4 * (head + slots * R * _bt_pad(S + 1)) + Cb
 
 
 def _fused_smem_bytes(Cb: int, R: int, S: int) -> int:
-    """K4's dynamic shared memory per block: the suffix-row stack
-    [Cb+1, R, S+1], the prefix rows F and F' [R, S+1] each, the
-    per-branch maxima [R, 9] and the 5x5 table, all f32."""
-    return 4 * ((Cb + 3) * R * (S + 1) + 9 * R + 25)
+    """The least dynamic shared memory a K4 block needs (`_fused_plan`)."""
+    return _fused_plan(Cb, R, S)[1]
 
 
 def fits_fused(Cb: int, R: int, S: int) -> bool:
-    """Whether K4's working set fits one block's shared memory (the
-    card's counterpart of the JAX package's `_pick_tile_fused`)."""
-    return _fused_smem_bytes(Cb, R, S) <= _SMEM_PER_BLOCK
+    """Whether K4 takes a bucket: exactly where the JAX package routes it
+    to its fused kernel (`_tpu_fuses`).  The kernel launches at every
+    such bucket; where it could not, its launch fails and raises."""
+    return _tpu_fuses(Cb, R, S)
 
 
 def cuda_route(fused: bool, Cb: int, R: int, S: int) -> str:
     """The kernel route `score_edits_raw` takes for CUDA tensors:
-    "polish_fused" (K4) when asked for and it fits, else
-    "polish_score" (K2+K3)."""
+    "polish_fused" (K4) when asked for and the JAX package would fuse
+    the bucket (`fits_fused`), else "polish_score" (K2+K3)."""
     return ("polish_fused" if fused and fits_fused(Cb, R, S)
             else "polish_score")
 
@@ -347,26 +379,24 @@ def _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
     Bb, Cb = cand.shape
     _, R, S = branches.shape
     if not fits_fused(Cb, R, S):
-        raise ValueError(f"(Cb, R, S) = {(Cb, R, S)}: K4's stack needs "
-                         f"{_fused_smem_bytes(Cb, R, S)} B of shared "
-                         f"memory, a block has {_SMEM_PER_BLOCK}")
+        raise ValueError(f"(Cb, R, S) = {(Cb, R, S)} is outside K4's "
+                         f"domain (fits_fused)")
     dev = cand.device
     gp, sg, vgap = tables
-    ds = _ds(vgap)
     w = bmask.to(torch.float32)
     total = torch.empty(Bb, dtype=torch.float32, device=dev)
     del_raw = torch.empty((Cb, Bb), dtype=torch.float32, device=dev)
     ins4 = torch.empty((4, Cb + 1, Bb), dtype=torch.float32, device=dev)
     sub4 = torch.empty((4, Cb, Bb), dtype=torch.float32, device=dev)
     fn = _cuda.lib("polish_fused").polish_fused_launch
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = _cuda.ptr
     _cuda.launch("polish_fused", fn, dev, p(cand), p(branches), p(blen),
-                 p(sg), p(gp), p(vgap), p(ds), p(cand_len), p(w), p(subs),
+                 p(sg), p(gp), p(vgap), p(cand_len), p(w), p(subs),
                  p(total), p(del_raw), p(ins4), p(sub4), Bb, Cb, R, S,
-                 _fused_smem_bytes(Cb, R, S))
+                 _fused_plan(Cb, R, S)[0])
     return total, del_raw, ins4, sub4
 
 
@@ -374,7 +404,8 @@ def _score_edits_raw_fused_cuda(cand, cand_len, branches, blen, bmask,
                                 subs):
     """K4 (csrc/polish_fused.cu) on the tensors' CUDA device; same
     contract as _score_edits_raw."""
-    _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs)
+    _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs,
+                       max_r=56)
     tables = _tables(cand, cand_len, branches, blen, subs)
     return _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
                               tables)

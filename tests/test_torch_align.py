@@ -63,6 +63,23 @@ def test_edit_distance_equals_jnp_and_pallas(B, S):
     assert got[0] == S and got[1] == S and got[2] == 0 and got[5] == 0
 
 
+@pytest.mark.parametrize("B,S", [(21, 16), (12, 64), (7, 300)])
+def test_edit_distance_codes_past_3_equal_jnp(B, S):
+    """Codes 4, 200 and 255 beside 0-3, which K5's bit-parallel rows
+    match on their general path: equal to the JAX package's distances."""
+    a, al, b, bl = _pairs(B, S, B + S + 5)
+    rng = np.random.default_rng(S)
+    codes = np.array([4, 200, 255], np.uint8)
+    a = np.where(rng.random(a.shape) < 0.3,
+                 codes[rng.integers(0, 3, a.shape)], a).astype(np.uint8)
+    b = np.where(rng.random(b.shape) < 0.3,
+                 codes[rng.integers(0, 3, b.shape)], b).astype(np.uint8)
+    b[5] = a[5]
+    got = _torch(a, al, b, bl)
+    np.testing.assert_array_equal(got, np.asarray(jax_edit(a, al, b, bl)))
+    assert got[5] == 0
+
+
 def test_edit_distance_equals_jnp_at_1024():
     a, al, b, bl = _pairs(6, 1024, 7)
     np.testing.assert_array_equal(_torch(a, al, b, bl),

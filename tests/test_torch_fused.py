@@ -18,6 +18,7 @@ import torch
 
 import flye_tpu.ops.polish as P
 import flye_tpu.ops.polish_pallas as PP
+import flye_tpu.polishing.polisher as POLISHER
 import flye_tpu_torch.ops.polish as TP
 from flye_tpu_torch.ops import _cuda
 from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
@@ -85,6 +86,7 @@ def _assert_close(name, r, o):
     (1, (4, 20, 12, 28)),
     (2, (4, 20, 18, 60)),
     (5, (3, 16, 5, 130)),
+    (6, (3, 16, 40, 30)),
 ])
 def test_fused_matches_jax_fused_kernel(seed, shape):
     args = _inputs(seed, shape)
@@ -103,21 +105,24 @@ def test_fused_matches_jax_fused_kernel(seed, shape):
             _assert_close(name, r, o.numpy())
 
 
-# (Cb, S, R) of the polisher's buckets (polishing/polisher.py
-# _SIZE_BUCKETS) at 8 branches per group-lane
-@pytest.mark.parametrize("Cb,S,R,fits", [
-    (32, 31, 8, True), (48, 63, 8, True), (64, 96, 8, True),
-    (96, 127, 8, False), (160, 240, 8, False)])
-def test_fits_fused(Cb, S, R, fits):
-    assert TP.fits_fused(Cb, R, S) is fits
-    assert (TP._fused_smem_bytes(Cb, R, S) <= 232448) is fits
+# every (Cb, S) of the polisher's buckets at each of its branch counts
+@pytest.mark.parametrize("R", POLISHER._R_BUCKETS)
+@pytest.mark.parametrize("Cb,S", POLISHER._SIZE_BUCKETS)
+def test_fits_fused(Cb, S, R):
+    """K4 takes a bucket exactly where the JAX package routes it to its
+    fused kernel, and its block then fits a block's shared memory."""
+    _, _, Rp, W = PP._kernel_dims(R, S)
+    jax_fuses = PP._pick_tile_fused(Rp, W, Cb + 1) is not None
+    assert TP.fits_fused(Cb, R, S) is jax_fuses
+    if jax_fuses:
+        assert TP._fused_smem_bytes(Cb, R, S) <= 232448
 
 
 @pytest.mark.parametrize("fused,Cb,S,R,route", [
     (True, 64, 96, 8, "polish_fused"),
     (True, 32, 31, 8, "polish_fused"),
-    (True, 96, 127, 8, "polish_score"),
-    (True, 160, 240, 8, "polish_score"),
+    (True, 96, 127, 8, "polish_fused"),
+    (True, 160, 240, 8, "polish_fused"),
     (True, 1536, 2304, 8, "polish_score"),
     (False, 64, 96, 8, "polish_score"),
     (False, 32, 31, 3, "polish_score")])
@@ -136,7 +141,7 @@ def _meta_inputs(B, Cb, R, S):
 
 
 @pytest.mark.parametrize("fused,Cb,S,route", [
-    (True, 64, 96, "polish_fused"), (True, 160, 240, "polish_score"),
+    (True, 64, 96, "polish_fused"), (True, 384, 576, "polish_score"),
     (False, 64, 96, "polish_score")])
 def test_device_tensor_takes_its_kernel_route(monkeypatch, fused, Cb, S,
                                               route):
@@ -155,8 +160,8 @@ def test_device_tensor_takes_its_kernel_route(monkeypatch, fused, Cb, S,
 
 
 def test_fused_wrapper_refuses_what_does_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        TP._score_edits_raw_fused_cuda(*_meta_inputs(2, 96, 8, 127))
+    with pytest.raises(ValueError, match="outside K4's domain"):
+        TP._score_edits_raw_fused_cuda(*_meta_inputs(2, 384, 8, 576))
 
 
 def test_polish_bubbles_reads_flye_tpu_fused(monkeypatch):

@@ -9,8 +9,9 @@ Tests marked `gpu` skip without a CUDA device.  K1 and K5 must match
 bit for bit; K2's rows exactly on their live region (rows below
 cand_len, columns up to blen: the rest of its output is undefined), the
 four raw score outputs of K2+K3 bit for bit, chars exactly; K4's
-outputs must equal K2+K3's bit for bit and the plain version's within
-1e-3."""
+outputs must equal K2+K3's and the plain version's bit for bit."""
+
+import os
 
 import numpy as np
 import pytest
@@ -69,6 +70,40 @@ def test_require_rejects_bad_inputs():
         _cuda.require(t, "t", torch.int32, (3, 2), cpu)
     with pytest.raises(ValueError, match="contiguous"):
         _cuda.require(t.T, "t", torch.int32, (3, 2), cpu)
+
+
+def test_header_change_marks_its_sources_stale(tmp_path, monkeypatch):
+    """A kernel library is rebuilt when its source or a csrc header the
+    source includes is newer than it; a header it does not include
+    leaves it alone."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    (csrc / "rows.cuh").write_text("// shared rows\n")
+    (csrc / "other.cuh").write_text("// not included\n")
+    (csrc / "k.cu").write_text('#include <stdint.h>\n#include "rows.cuh"\n')
+    so = build / "libk.so"
+    so.write_bytes(b"")
+    monkeypatch.setattr(_cuda, "CSRC", str(csrc))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(build))
+    t = so.stat().st_mtime
+    for f in ("rows.cuh", "other.cuh", "k.cu"):
+        os.utime(csrc / f, (t - 10, t - 10))
+    assert not _cuda._stale("k")
+    os.utime(csrc / "other.cuh", (t + 10, t + 10))
+    assert not _cuda._stale("k")
+    os.utime(csrc / "rows.cuh", (t + 10, t + 10))
+    assert _cuda._stale("k")
+    so.unlink()
+    os.utime(csrc / "rows.cuh", (t - 10, t - 10))
+    assert _cuda._stale("k")
+
+
+def test_kernel_sources_list_the_shared_row_header():
+    """K2+K3 and K4 both build from csrc/polish_rows.cuh."""
+    for name in ("polish_score", "polish_fused"):
+        heads = [os.path.basename(p) for p in _cuda._sources(name)[1:]]
+        assert heads == ["polish_rows.cuh"], name
 
 
 @pytest.mark.gpu
@@ -186,8 +221,8 @@ def test_polish_kernels_edge_cases_bitwise(cuda_device, case):
 @pytest.mark.parametrize("shape", [(64, 64, 8, 96), (32, 48, 8, 63),
                                    (8, 48, 3, 63), (4, 32, 8, 31)])
 def test_fused_kernel_matches_pair_and_plain(cuda_device, shape):
-    """K4 equals K2+K3 bit for bit (the same arithmetic in the same
-    order) and the plain version within 1e-3, chars exact."""
+    """K4 equals K2+K3 and the plain version bit for bit (the same
+    arithmetic in the same order), chars exact."""
     args = [torch.from_numpy(a).to(cuda_device)
             for a in polish_inputs(sum(shape) + 1, shape)]
     cand, clen = args[0], args[1]
@@ -201,9 +236,7 @@ def test_fused_kernel_matches_pair_and_plain(cuda_device, shape):
         assert torch.equal(a, b) and torch.equal(a, c)
     raw_p = TP._score_edits_raw(*args)
     for a, b in zip(raw_f, raw_p):
-        fa = a > -1e29
-        assert torch.equal(fa, b > -1e29)
-        assert float((a - b)[fa].abs().max()) < 1e-3
+        assert TP.bitwise_equal(a, b)
     fk = TP._finish_scores(cand, clen, *raw_f, groups=1)
     fp = TP._finish_scores(cand, clen, *raw_p, groups=1)
     assert torch.equal(fk[3], fp[3]) and torch.equal(fk[5], fp[5])
@@ -237,12 +270,14 @@ def test_hill_climb_kernels_match_plain(cuda_device):
         np.testing.assert_array_equal(k[0][i, :k[1][i]], true[i])
 
 
-def lev_inputs(B, S, seed):
+def lev_inputs(B, S, seed, codes=(0, 1, 2, 3)):
     """Random and related pairs with the edge rows first: alen 0, blen
-    0, both 0, both full, identical full-length strings."""
+    0, both 0, both full, identical full-length strings; the codes drawn
+    from `codes`."""
     rng = np.random.default_rng(seed)
-    a = rng.integers(0, 4, (B, S)).astype(np.uint8)
-    b = rng.integers(0, 4, (B, S)).astype(np.uint8)
+    pick = np.asarray(codes, np.uint8)
+    a = pick[rng.integers(0, len(pick), (B, S))]
+    b = pick[rng.integers(0, len(pick), (B, S))]
     half = B // 2
     mut = rng.random((half, S)) < 0.1
     b[:half] = np.where(mut, b[:half], a[:half])
@@ -268,6 +303,46 @@ def test_levenshtein_kernel_matches_plain(cuda_device, B, S):
     assert torch.equal(d_k, d_p)
     assert torch.equal(d_k, d_k2)
     assert d_k[:5].tolist() == [S, S, 0, int(d_p[3]), 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(512, 16), (512, 64), (32, 1024),
+                                 (6, 16384)])
+def test_levenshtein_kernel_codes_past_3_match_plain(cuda_device, B, S):
+    """Codes 4, 200 and 255 beside 0-3 (the general match path of the
+    bit-parallel rows), up to the widest rows the kernel takes."""
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in lev_inputs(B, S, B + S + 1, (0, 1, 2, 3, 4, 200, 255))]
+    d_k = TA.edit_distance_batch(*args)
+    d_p = TA._edit_distance_plain(*args)
+    assert torch.equal(d_k, d_p)
+    assert d_k[:5].tolist() == [S, S, 0, int(d_p[3]), 0]
+
+
+# (Cb, S, R) of the polisher's buckets the JAX package fuses (K4's route)
+FUSED_BUCKETS = [(32, 31, 8), (48, 63, 8), (64, 96, 8), (96, 127, 8),
+                 (160, 240, 8), (32, 31, 16), (48, 63, 16), (64, 96, 16),
+                 (96, 127, 16), (32, 31, 32), (48, 63, 32), (64, 96, 32),
+                 (32, 31, 56), (48, 63, 56)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Cb,S,R", FUSED_BUCKETS)
+def test_fused_kernel_at_the_jax_fused_buckets(cuda_device, Cb, S, R):
+    """K4 at every bucket it takes: all four outputs equal the plain
+    version's bit for bit, and K2+K3's where they take R."""
+    shape = (8, Cb, R, S)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in polish_inputs(Cb + S + R, shape)]
+    assert TP.cuda_route(True, Cb, R, S) == "polish_fused"
+    before = _cuda.LAUNCHES["polish_fused"]
+    raw_f = TP.score_edits_raw(*args, fused=True)
+    assert _cuda.LAUNCHES["polish_fused"] == before + 1
+    for a, b in zip(raw_f, TP._score_edits_raw(*args)):
+        assert TP.bitwise_equal(a, b)
+    if R <= 32:
+        for a, b in zip(raw_f, TP._score_edits_raw_cuda(*args)):
+            assert TP.bitwise_equal(a, b)
 
 
 def _kernel_unavailable(monkeypatch):
