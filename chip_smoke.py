@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
                           [--phases chain,polish,lev,main,fused,hifi,
-                                    k1paths,k23paths,k4paths]
+                                    climb,k1paths,k23paths,k4paths]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
@@ -61,18 +61,33 @@ prints no result):
      bit-identical to the plain version, two launches bitwise equal,
      timed beside the plain version and the bound;
   9. K2 + K3 at the raw path's own launches: per (Cb, S, R, lanes) the
-     inputs of the launch pair with the most live cells, held bit for
+     inputs of the launch pair with the most live cells among the eager
+     ones (each climb graph's warm-up step), held bit for
      bit against the plain version (all four outputs; K2's rows on
      their live region), timed beside the plain version and the bounds;
  10. K4 at the HiFi and polish-target runs' own launches: per run and
-     (Cb, S, R, lanes) the launch with the most live cells, bit for bit
+     (Cb, S, R, lanes) the eager launch with the most live cells, bit for bit
      against K2+K3 and the plain version, timed beside both and the
-     pair's bound.
-Phases 5 and 7 print a census of their runs: every kernel's launches
-and summed device time by shape (a pair of CUDA events right around
-each launcher call, read after the run's final synchronize; nothing on
-the path synchronises for it), K1's admissible pairs by shape, and
-K2+K3 per launch pair against the pair's own bound.
+     pair's bound;
+ 11. (`climb`, run after 7) the device-resident climb against the
+     host-stepped one (FLYE_TPU_HOST_POLL=1), each run in a fresh
+     process without the census, so that their walls compare: phase 5's
+     raw run resumed from consensus in each mode (every output file
+     byte-identical between the two and to phase 5's; stage walls and
+     "bubble kernels" steps printed), phase 7's fused HiFi run resumed
+     from consensus host-stepped (HIFI_OUTPUTS byte-identical to the
+     resident run's), a `--profile` run of the raw consensus stage in
+     each mode (the device's busy share over the stage, the
+     host->device copies' share of "bubble kernels", and per climb
+     graph shape the device ms of K2+K3 against the rest of its
+     replays), and each run's device peak memory.
+Phases 5 and 7 climb device-resident (CUDA-graph replays) and print a
+census of their runs: every kernel's eager launches and summed device
+time by shape (a pair of CUDA events right around each launcher call,
+read after the run's final synchronize; nothing on the path
+synchronises for it), K1's admissible pairs by shape, K2+K3 per launch
+pair against the pair's own bound, and per climb graph its replays and
+their device time (a pair of events around each replay).
 Each kernel is timed (CUDA events) beside its plain version and its
 bound: the larger of the bytes it must move over the card's memory rate
 and the operations its inputs need over the card's peak rate for their
@@ -81,7 +96,7 @@ line with each kernel's launches on both paths, and last `{"ok": true,
 "device": {...}}`.  `--main-device cpu` runs phase 5 on the CPU instead
 (how the floors were measured); `--phases` runs the build and the named
 phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7, k1paths
-8, k23paths 9, k4paths 10).
+8, k23paths 9, k4paths 10, climb 11).
 """
 
 import argparse
@@ -163,6 +178,9 @@ HIFI_OUTPUTS = ("10-consensus/consensus.fasta",
                 "assembly.fasta", "assembly_graph.gfa", "assembly_graph.gv",
                 "assembly_info.txt")
 CENSUS = {}     # run tag -> census rows (Census.finish)
+# path -> (output directory, reads, genome length, device peak bytes) of
+# phases 5 and 7's runs, kept for phase 11
+KEPT = {}
 CAPTURES = {}   # (run tag, T, M, L) -> K1 inputs (host) and scalars
 # (Cb, S, R, lanes) -> the raw run's K2+K3 inputs (host) with the most
 # live cells at that shape
@@ -937,7 +955,16 @@ class Census:
     landed (an event on the census's stream, queried, never waited for)
     it is kept only while its launch has the most live cells of its
     shape, so the pinned blocks of the others are reused; `finish` hands
-    the kept inputs to phase 9 (K3) and phase 10 (K4)."""
+    the kept inputs to phase 9 (K3) and phase 10 (K4).
+
+    The climb's kernels launch mostly inside CUDA-graph replays
+    (`ops/polish._Climb`).  A launch made while a graph is captured is
+    not the census's: the wrappers call straight through and
+    `_cuda.launch` records no events.  So the kernel rows count the eager
+    launches only (on the climb, each graph's warm-up step, whose
+    inputs feed phases 9 and 10), and each replay is timed whole by a
+    pair of events around it (`_cuda.ON_REPLAY`): the census prints per
+    graph its replays, their device ms and the launches each captured."""
 
     def __init__(self, tag):
         self.tag = tag
@@ -954,6 +981,7 @@ class Census:
         self.stream = None
         self.host_s = 0.0
         self.host_bytes = 0
+        self.replays = []    # (graph, start event, end event)
 
     def __enter__(self):
         import importlib
@@ -966,11 +994,13 @@ class Census:
             self.saved.append((module, attr, fn))
             setattr(module, attr, self._wrap(name, fn))
         _cuda.ON_LAUNCH = self._timed
+        _cuda.ON_REPLAY = self._replayed
         return self
 
     def __exit__(self, *exc):
         from flye_tpu_torch.ops import _cuda
         _cuda.ON_LAUNCH = None
+        _cuda.ON_REPLAY = None
         for module, attr, fn in reversed(self.saved):
             setattr(module, attr, fn)
         self.saved = []
@@ -978,10 +1008,15 @@ class Census:
     def _timed(self, name, start, end):
         self.local.events = (start, end)
 
+    def _replayed(self, graph, start, end):
+        self.replays.append((graph, start, end))
+
     def _wrap(self, name, fn):
         import torch
 
         def launch(*args):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args)     # captured: noted by its graph
             self.local.events = None
             out = fn(*args)
             t0 = time.perf_counter()
@@ -1126,7 +1161,7 @@ class Census:
             if mine:
                 ms = sum(r["ms"] for r in mine)
                 b_ms = sum(r["bound_ms"] for r in mine)
-                print(f"[census {self.tag}] {name} in all: "
+                print(f"[census {self.tag}] {name} in all, eager: "
                       f"{sum(r['launches'] for r in mine)} launches, "
                       f"{ms:.3f} ms, bound {b_ms:.3f} ms, "
                       f"{ms - b_ms:.3f} ms above it", flush=True)
@@ -1145,7 +1180,37 @@ class Census:
                   f"{sum(r['launches'] for r in pair_rows)} pairs, "
                   f"{ms:.3f} ms, pair bound {b_ms:.3f} ms, "
                   f"{ms - b_ms:.3f} ms above it", flush=True)
-        CENSUS[self.tag] = out + pair_rows
+        graphs, seen = {}, set()
+        for graph, e0, e1 in self.replays:
+            g = graphs.setdefault(graph.tag, {
+                "kernel": "climb_graph", "shape": graph.tag, "replays": 0,
+                "ms": 0.0, "per_replay": dict(graph.launches),
+                "captures": 0, "capture_s": 0.0})
+            g["replays"] += 1
+            g["ms"] += e0.elapsed_time(e1)
+            if id(graph) not in seen:
+                seen.add(id(graph))
+                g["captures"] += 1
+                g["capture_s"] += graph.capture_s
+        self.replays = []
+        graph_rows = [graphs[k] for k in sorted(graphs)]
+        for g in graph_rows:
+            each = ", ".join(f"{k} {n}" for k, n in
+                             sorted(g["per_replay"].items()))
+            print(f"[census {self.tag}] climb graph {g['shape']}: "
+                  f"{g['replays']} replays, {g['ms']:.3f} ms (whole "
+                  f"replays: scoring, tables and selection), each "
+                  f"{each}; captured in {1e3 * g['capture_s']:.1f} ms of "
+                  f"host time", flush=True)
+        if graph_rows:
+            print(f"[census {self.tag}] climb graphs in all: "
+                  f"{len(graph_rows)} shapes, "
+                  f"{sum(g['replays'] for g in graph_rows)} replays, "
+                  f"{sum(g['ms'] for g in graph_rows):.3f} ms, captures "
+                  f"{sum(g['capture_s'] for g in graph_rows):.3f} s of host "
+                  f"time; the kernel rows above are the eager launches "
+                  f"(each graph's warm-up step)", flush=True)
+        CENSUS[self.tag] = out + pair_rows + graph_rows
         for key, (cells, cap) in self.best.items():
             if self.capture == "polish_fused":
                 K4_CAPTURES[(self.tag, *key)] = dict(cap, cells=cells)
@@ -1161,11 +1226,15 @@ class Census:
 def run_cli(tag, argv, census=True):
     """One `flye_tpu_torch.main` run; raises unless it exits 0.  Prints
     its step times and, with `census`, the census of its launches.
-    Returns (wall s, seconds per stage).  Launch counts are the caller's
-    to reset."""
+    Returns (wall s, seconds per stage, the step lines).  Launch counts
+    are the caller's to reset."""
     import torch
+    import flye_tpu_torch.ops.polish as TP
     from flye_tpu_torch import main as flye_main
 
+    # each run captures its own climbs: its census sees every graph's
+    # warm-up step, and its peak memory holds no other run's buffers
+    TP._CLIMBS.clear()
     stages = _StageTimes()
     # on the root logger: the CLI replaces the package logger's handlers
     logging.getLogger().addHandler(stages)
@@ -1186,21 +1255,21 @@ def run_cli(tag, argv, census=True):
         print(f"[{tag}]   {line}", flush=True)
     if census:
         run.finish()
-    return wall, jobs
+    return wall, jobs, stages.lines
 
 
 def simulate(tag, glen, **read_args):
     """Simulated truth genome (the smoke's 1 Mb layout: seed 11, repeats
-    5 kb x3 and 2 kb x4) and its reads in RUN_DIR."""
+    5 kb x3 and 2 kb x4) and its reads in RUN_DIR/<tag>."""
     from flye_tpu_torch.io.fasta import write_fasta
     from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    os.makedirs(RUN_DIR)
+    shutil.rmtree(os.path.join(RUN_DIR, tag), ignore_errors=True)
+    os.makedirs(os.path.join(RUN_DIR, tag))
     t0 = time.perf_counter()
     genome = random_genome(glen, seed=11,
                            repeat_spec=[(5000, 3), (2000, 4)])
     reads = simulate_reads(genome, seed=7, **read_args)
-    reads_path = os.path.join(RUN_DIR, "reads.fasta")
+    reads_path = os.path.join(RUN_DIR, tag, "reads.fasta")
     write_fasta(reads, reads_path)
     n_bases = sum(len(s) for _, s in reads)
     print(f"[{tag}] simulated {glen} bp genome, {len(reads)} reads, "
@@ -1218,7 +1287,7 @@ def identity(tag, path, genome, floor=None):
     if total == 0:
         raise AssertionError(f"empty {path}")
     ident, n_anch, n_win = window_identity(contigs, genome, "cuda")
-    print(f"[{tag}] {os.path.relpath(path, RUN_DIR)}: {len(contigs)} "
+    print(f"[{tag}] {os.path.relpath(path, ROOT)}: {len(contigs)} "
           f"contigs, {total} bp (truth {len(genome)}); window identity "
           f"{ident!r} ({n_anch}/{n_win} windows anchored)", flush=True)
     if floor is not None and ident < floor:
@@ -1247,10 +1316,10 @@ def phase_main(genome_mb, device):
     genome, reads_path = simulate(
         "main", glen, coverage=30, mean_length=8000, error_rate=0.08,
         error_mix=(0.2, 0.5, 0.3))
-    out = os.path.join(RUN_DIR, "out")
+    out = os.path.join(RUN_DIR, "main", "out")
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    wall, jobs = run_cli(
+    wall, jobs, _ = run_cli(
         "main", ["--pacbio-raw", reads_path, "-o", out, "-g", f"{glen}",
                  "--device", device])
     launches = dict(_cuda.LAUNCHES)
@@ -1278,7 +1347,8 @@ def phase_main(genome_mb, device):
     if checked and n_contigs != ASSEMBLY_CONTIGS:
         raise AssertionError(f"{n_contigs} contigs in assembly.fasta, "
                              f"the CPU run has {ASSEMBLY_CONTIGS}")
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    if device == "cuda":
+        KEPT["raw"] = (out, reads_path, glen, peak)   # for phase 11
     return launches
 
 
@@ -1471,19 +1541,19 @@ def phase_hifi(plain=False, keep=None):
     glen = 1_000_000
     genome, reads_path = simulate("hifi", glen, coverage=30,
                                   mean_length=15000, error_rate=0.005)
-    out = os.path.join(RUN_DIR, "hifi")
-    out_pt = os.path.join(RUN_DIR, "hifi_pt")
+    out = os.path.join(RUN_DIR, "hifi", "hifi")
+    out_pt = os.path.join(RUN_DIR, "hifi", "hifi_pt")
     draft = os.path.join(out, "00-assembly", "draft_assembly.fasta")
     os.environ["FLYE_TPU_FUSED"] = "1"
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     try:
         with plain_versions() if plain else contextlib.nullcontext():
-            wall, jobs = run_cli(
+            wall, jobs, _ = run_cli(
                 "hifi", ["--pacbio-hifi", reads_path, "-o", out, "-g",
                          f"{glen}", "--device", "cuda"], census=not plain)
             asm_launches = dict(_cuda.LAUNCHES)
-            wall_pt, _ = run_cli(
+            wall_pt, _, _ = run_cli(
                 "hifi-pt", ["--polish-target", draft, "--pacbio-hifi",
                             reads_path, "-o", out_pt, "--device", "cuda"],
                 census=not plain)
@@ -1526,7 +1596,10 @@ def phase_hifi(plain=False, keep=None):
         os.makedirs(keep, exist_ok=True)
         for d in (out, out_pt):
             shutil.move(d, os.path.join(keep, os.path.basename(d)))
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
+        out = os.path.join(keep, os.path.basename(out))
+    shutil.rmtree(out_pt, ignore_errors=True)
+    if not plain:
+        KEPT["hifi"] = (out, reads_path, glen, peak)   # for phase 11
     return runs
 
 
@@ -1543,7 +1616,7 @@ def hifi_default_route(out, reads_path, glen):
     for rel in HIFI_OUTPUTS:
         os.remove(os.path.join(out_def, rel))
     _cuda.reset_launches()
-    wall, jobs = run_cli(
+    wall, jobs, _ = run_cli(
         "hifi-default", ["--pacbio-hifi", reads_path, "-o", out_def, "-g",
                          f"{glen}", "--device", "cuda", "--resume-from",
                          "consensus"])
@@ -1701,8 +1774,293 @@ def phase_k4_paths(report):
             "pair_ms": pair_ms, "cells": cap["cells"]})
 
 
-PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "k1paths",
-          "k23paths", "k4paths")
+# ---------------------------------------------------------------- phase 11
+
+def child_run(tag, argv, env):
+    """`flye_tpu_torch.main argv` in a fresh process (this script's
+    `--child`), without the census and with FLYE_TPU_HOST_POLL and
+    FLYE_TPU_FUSED as `env` sets them; its step lines are printed here.
+    Raises unless it exits 0.  Returns its report: wall s, seconds per
+    stage, the step lines, device peak bytes and launches."""
+    full = {k: v for k, v in os.environ.items()
+            if k not in ("FLYE_TPU_HOST_POLL", "FLYE_TPU_FUSED")}
+    full.update(env)
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
+                        json.dumps({"tag": tag, "argv": argv})],
+                       env=full, capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        raise RuntimeError(f"{tag} run exited with {p.returncode}:\n"
+                           f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    lines = p.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    return json.loads(lines[-1])
+
+
+def child_main(spec):
+    """The `--child` process: one CLI run without the census; prints
+    its report as the last line."""
+    import torch
+    from flye_tpu_torch.ops import _cuda
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    sys.path.insert(0, ROOT)
+    spec = json.loads(spec)
+    torch.cuda.reset_peak_memory_stats()
+    wall, jobs, steps = run_cli(spec["tag"], spec["argv"], census=False)
+    print(json.dumps({"wall": wall, "jobs": jobs, "steps": steps,
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "launches": dict(_cuda.LAUNCHES)}), flush=True)
+
+
+def resume_copy(src, dst):
+    """A copy of a finished run's directory holding only what resuming
+    from consensus needs (00-assembly, params.json, flye.log): every
+    file compared afterwards is written by the resumed run."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    for rel in run_files(dst):
+        if not rel.startswith("00-assembly" + os.sep):
+            os.remove(os.path.join(dst, rel))
+
+
+def run_files(root):
+    """The files of a run directory but its log, params.json and
+    profile trace, as paths relative to it."""
+    out = []
+    for d, _, names in os.walk(root):
+        rel = os.path.relpath(d, root)
+        if rel.split(os.sep)[0] == "profile":
+            continue
+        out += [os.path.normpath(os.path.join(rel, f)) for f in names
+                if f not in ("flye.log", "params.json")]
+    return sorted(out)
+
+
+def same_files(a, b, rels=None):
+    """The files of `rels` (default: every file of either run) that
+    differ between run directories a and b, or are missing in one."""
+    rels = rels or sorted(set(run_files(a)) | set(run_files(b)))
+    differ = []
+    for rel in rels:
+        pa, pb = os.path.join(a, rel), os.path.join(b, rel)
+        if not (os.path.exists(pa) and os.path.exists(pb)):
+            differ.append(rel)
+            continue
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            if fa.read() != fb.read():
+                differ.append(rel)
+    return differ
+
+
+def _union_ms(intervals, lo, hi):
+    """ms covered by the union of (ts, dur) intervals (trace µs) clipped
+    to [lo, hi]."""
+    spans = sorted((max(t, lo), min(t + d, hi)) for t, d in intervals
+                   if t < hi and t + d > lo)
+    total, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def trace_report(tag, out_dir):
+    """From the `--profile` trace of a consensus-only run: the device's
+    busy share over the consensus stage (the union of its GPU kernel
+    intervals over the stage's length), the share of the "bubble
+    kernels" step that is host->device copy (device time of the copies,
+    and the host's time in their runtime calls), and per climb shape the
+    device ms of the kernels its graph replays ran, K2+K3 or K4 apart
+    from the rest (selection and tables): the kernels launched while the
+    climb of a batch runs ("climb ..." ranges; host-stepped or a
+    resident climb's warm-up step and graph replays), and the host time
+    of those ranges.  Returns a dict of them."""
+    import bisect
+    import glob
+    paths = glob.glob(os.path.join(out_dir, "profile", "*.pt.trace.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"{tag}: {len(paths)} profile traces")
+    with open(paths[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+
+    def ranges(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") == "user_annotation" and e["name"] == name]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    stage = ranges("stage consensus")
+    bubble = ranges("polish: bubble kernels")
+    if len(stage) != 1 or not bubble or not kernels:
+        raise AssertionError(f"{tag}: trace has {len(stage)} consensus "
+                             f"stages, {len(bubble)} bubble steps and "
+                             f"{len(kernels)} kernels")
+    lo, hi = stage[0]
+    busy = _union_ms([(e["ts"], e["dur"]) for e in kernels], lo, hi)
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e["name"]]
+    corr = {e["args"].get("correlation") for e in h2d}
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    b_ms = sum(b - a for a, b in bubble) / 1e3
+    h2d_dev = sum(_union_ms([(e["ts"], e["dur"]) for e in h2d], a, b)
+                  for a, b in bubble)
+    h2d_host = sum(_union_ms([(e["ts"], e["dur"]) for e in runtime
+                              if e["args"].get("correlation") in corr],
+                             a, b) for a, b in bubble)
+    rep = {"stage_ms": (hi - lo) / 1e3, "busy_ms": busy,
+           "busy_share": busy / ((hi - lo) / 1e3), "bubble_ms": b_ms,
+           "h2d_device_ms": h2d_dev, "h2d_host_ms": h2d_host,
+           "h2d_share": max(h2d_dev, h2d_host) / b_ms, "graphs": {}}
+    print(f"[climb] {tag} profile: consensus stage {rep['stage_ms']:.1f} "
+          f"ms, device busy {busy:.1f} ms (kernel union), share "
+          f"{rep['busy_share']:.4f}; bubble kernels {b_ms:.1f} ms, of it "
+          f"host->device copy {h2d_dev:.1f} ms on the device and "
+          f"{h2d_host:.1f} ms in the host's runtime calls (share "
+          f"{rep['h2d_share']:.4f})", flush=True)
+    by_corr = collections.defaultdict(list)
+    for e in kernels:
+        by_corr[e["args"].get("correlation")].append(e)
+    calls = sorted((e["ts"], e["name"], e["args"].get("correlation"))
+                   for e in runtime)
+    keys = [t for t, _, _ in calls]
+    for e in events:
+        if e.get("cat") != "user_annotation" or \
+                not e["name"].startswith("climb "):
+            continue
+        g = rep["graphs"].setdefault(e["name"][6:], {
+            "replays": 0, "ms": 0.0, "scoring_ms": 0.0, "kernels": 0,
+            "batches": 0, "first_ms": e["dur"] / 1e3, "host_ms": 0.0})
+        g["batches"] += 1
+        g["host_ms"] += e["dur"] / 1e3
+        i = bisect.bisect_left(keys, e["ts"])
+        while i < len(calls) and keys[i] <= e["ts"] + e["dur"]:
+            g["replays"] += calls[i][1].startswith("cudaGraphLaunch")
+            for k in by_corr.get(calls[i][2], ()):
+                g["kernels"] += 1
+                g["ms"] += k["dur"] / 1e3
+                if "polish_" in k["name"]:
+                    g["scoring_ms"] += k["dur"] / 1e3
+            i += 1
+    for shape, g in sorted(rep["graphs"].items()):
+        print(f"[climb] {tag} profile, climb {shape}: {g['batches']} "
+              f"batches in {g['host_ms']:.1f} ms of host time (the first "
+              f"{g['first_ms']:.1f} ms), {g['replays']} graph replays, "
+              f"{g['kernels']} kernels, {g['ms']:.3f} ms of "
+              f"device time: K2+K3/K4 {g['scoring_ms']:.3f} ms, selection "
+              f"and tables {g['ms'] - g['scoring_ms']:.3f} ms", flush=True)
+    if rep["graphs"]:
+        gs = rep["graphs"].values()
+        ms = sum(g["ms"] for g in gs)
+        sc = sum(g["scoring_ms"] for g in gs)
+        print(f"[climb] {tag} profile, climb graphs in all: "
+              f"{sum(g['batches'] for g in gs)} batches in "
+              f"{sum(g['host_ms'] for g in gs):.1f} ms of host time (first "
+              f"batches {sum(g['first_ms'] for g in gs):.1f} ms), "
+              f"{sum(g['replays'] for g in gs)} graph replays, {ms:.3f} ms of "
+              f"device time: K2+K3/K4 {sc:.3f} ms, selection and tables "
+              f"{ms - sc:.3f} ms", flush=True)
+    return rep
+
+
+def climb_raw(out, reads, glen):
+    """Phase 11 (a): the raw run in `out` resumed from consensus in each
+    mode; every output file byte-identical between the two and to
+    `out`'s.  Returns the two runs' reports."""
+    rep = {}
+    for mode, env in CLIMB_MODES:
+        d = f"{out}_{mode}"
+        resume_copy(out, d)
+        rep[mode] = child_run(f"raw-{mode}", [
+            "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device",
+            "cuda", "--resume-from", "consensus"], env)
+    differ = same_files(f"{out}_host", f"{out}_resident")
+    if differ:
+        raise AssertionError(f"raw path resumed from consensus: the "
+                             f"host-stepped and resident climbs differ in "
+                             f"{differ}")
+    rels = run_files(f"{out}_resident")
+    differ = same_files(out, f"{out}_resident", rels)
+    if differ:
+        raise AssertionError(f"the resumed raw runs differ from phase 5's "
+                             f"in {differ}")
+    print(f"[climb] raw resumed from consensus: {len(rels)} output files "
+          "byte-identical, host-stepped = resident = phase 5", flush=True)
+    for mode, _ in CLIMB_MODES:
+        print(f"[climb] raw {mode}: {run_text(rep[mode])}", flush=True)
+    return rep
+
+
+def run_text(r):
+    bubble = [line.split(": done in ")[1].split(" s")[0]
+              for line in r["steps"] if "bubble kernels" in line]
+    return (f"wall {r['wall']:.1f} s from consensus, stages {r['jobs']}, "
+            f"bubble kernels {', '.join(bubble)} s, device peak "
+            f"{r['peak'] / 2**30:.2f} GiB, launches {r['launches']}")
+
+
+def climb_hifi(h_out, h_reads, h_glen):
+    """Phase 11 (b): the fused HiFi run in `h_out` resumed from
+    consensus host-stepped; HIFI_OUTPUTS byte-identical to `h_out`'s
+    (resident).  Returns the run's report."""
+    d = f"{h_out}_host"
+    resume_copy(h_out, d)
+    r = child_run("hifi-host", [
+        "--pacbio-hifi", h_reads, "-o", d, "-g", f"{h_glen}", "--device",
+        "cuda", "--resume-from", "consensus"],
+        {"FLYE_TPU_HOST_POLL": "1", "FLYE_TPU_FUSED": "1"})
+    differ = same_files(h_out, d, HIFI_OUTPUTS)
+    if differ:
+        raise AssertionError(f"the host-stepped HiFi rerun differs from "
+                             f"the resident run in {differ}")
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"[climb] HiFi (FLYE_TPU_FUSED=1) host-stepped: "
+          f"{len(HIFI_OUTPUTS)} files byte-identical to the resident "
+          f"run's; {run_text(r)}", flush=True)
+    return r
+
+
+def climb_profile(out, reads, glen):
+    """Phase 11 (c): `--profile` of the raw consensus stage in each
+    mode, on the copies `climb_raw` left (`trace_report`)."""
+    rep = {}
+    for mode, env in CLIMB_MODES:
+        d = f"{out}_{mode}"
+        child_run(f"profile-{mode}", [
+            "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device",
+            "cuda", "--resume-from", "consensus", "--stop-after",
+            "consensus", "--profile"], env)
+        rep[mode] = trace_report(f"raw {mode}", d)
+        shutil.rmtree(d, ignore_errors=True)
+    return rep
+
+
+CLIMB_MODES = (("host", {"FLYE_TPU_HOST_POLL": "1"}), ("resident", {}))
+
+
+def phase_climb():
+    """The device-resident climb against the host-stepped one
+    (FLYE_TPU_HOST_POLL=1), each run in a fresh process without the
+    census (`child_run`): (a) `climb_raw` on phase 5's run, (b)
+    `climb_hifi` on phase 7's fused run, (c) `climb_profile`, (d) each
+    run's device peak memory.  Raises on a difference."""
+    if "raw" not in KEPT or "hifi" not in KEPT:
+        raise AssertionError("phase climb needs phases main and hifi")
+    out, reads, glen, peak5 = KEPT["raw"]
+    h_out, h_reads, h_glen, peak7 = KEPT["hifi"]
+    raw = climb_raw(out, reads, glen)
+    hifi = climb_hifi(h_out, h_reads, h_glen)
+    climb_profile(out, reads, glen)
+    print(f"[climb] device peak memory: raw path (phase 5, resident, from "
+          f"configure) {peak5 / 2**30:.2f} GiB, raw from consensus "
+          f"host-stepped {raw['host']['peak'] / 2**30:.2f} and resident "
+          f"{raw['resident']['peak'] / 2**30:.2f} GiB; HiFi (phase 7, "
+          f"resident, both runs) {peak7 / 2**30:.2f} GiB, host-stepped from "
+          f"consensus {hifi['peak'] / 2**30:.2f} GiB", flush=True)
+
+
+PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "climb",
+          "k1paths", "k23paths", "k4paths")
 
 
 def main():
@@ -1719,7 +2077,10 @@ def main():
                     "card (how its floors were measured)")
     ap.add_argument("--keep-runs", default=None, metavar="DIR",
                     help="move phase 7's output directories to DIR")
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.child is not None:
+        return child_main(args.child)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -1744,6 +2105,7 @@ def main():
                       ("fused", lambda: phase_fused(report)),
                       ("hifi", lambda: phase_hifi(args.hifi_plain,
                                                   args.keep_runs)),
+                      ("climb", phase_climb),
                       ("k1paths", lambda: phase_k1_paths(report)),
                       ("k23paths", lambda: phase_k23_paths(report)),
                       ("k4paths", lambda: phase_k4_paths(report))):
@@ -1756,6 +2118,7 @@ def main():
                 paths.update(out)
             print(f"[phase] {name} done in {time.perf_counter() - t0:.1f} s",
                   flush=True)
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
 
     # the first shape of each kernel heads its entry; no single PyTorch
     # call computes any of these functions, so library_ms is null;

@@ -6,9 +6,10 @@ Job framework, flye/main.py): the same parser, output layout
 job-granular resume via params.json.  The default raw pipeline is
 ported: configure -> assembly -> consensus -> repeat -> contigger ->
 polishing -> finalize, for every read type, and so is the standalone
-polisher (`--polish-target`).  The optional stages Trestle
-(`--trestle`) and plasmid recovery (`--plasmids`), `--profile` and
-`--shards` above 1 are not yet ported and are refused up front.
+polisher (`--polish-target`).  `--profile` writes a torch.profiler trace
+of the pipeline under OUT_DIR/profile.  The optional stages Trestle
+(`--trestle`) and plasmid recovery (`--plasmids`) and `--shards` above
+1 are not yet ported and are refused up front.
 
 Usage:
     python -m flye_tpu_torch.main --pacbio-raw reads.fasta -o out_dir \
@@ -28,6 +29,7 @@ import sys
 from typing import Dict, List, Optional
 
 import numpy as np
+from torch.profiler import record_function
 
 from flye_tpu_torch.config import Config, PIPELINE, setup_run_params
 from flye_tpu_torch.io.fasta import write_fasta
@@ -440,7 +442,8 @@ def run_pipeline(args) -> int:
                     f"Can't resume: stage '{j.name}' outputs missing")
         # configure must re-run to rebuild the in-memory config
         if start_from > 0:
-            jobs[0].run()
+            with record_function(f"stage {jobs[0].name}"):
+                jobs[0].run()
 
     for i, job in enumerate(jobs):
         if i < start_from:
@@ -448,13 +451,32 @@ def run_pipeline(args) -> int:
             continue
         job.save_checkpoint()
         logger.info(">>> STAGE: %s", job.name)
-        job.run()
+        with record_function(f"stage {job.name}"):
+            job.run()
         if args.stop_after == job.name:
             logger.info("Stopped after stage '%s'", job.name)
             return 0
     logger.info("Final assembly: %s",
                 os.path.join(ctx.out_dir, "assembly.fasta"))
     return 0
+
+
+def run_profiled(args) -> int:
+    """run_pipeline under torch.profiler (the JAX package's
+    jax.profiler.trace around its pipeline): host activity, and the
+    device's when the run is on CUDA, no shapes or stacks; the trace
+    goes to OUT_DIR/profile in TensorBoard's layout
+    (<host>_<pid>.<ns>.pt.trace.json), with a range per stage ("stage
+    <job>") and per step timer."""
+    import torch.profiler as tp
+
+    activities = [tp.ProfilerActivity.CPU]
+    if args.device == "cuda":
+        activities.append(tp.ProfilerActivity.CUDA)
+    with tp.profile(activities=activities, on_trace_ready=(
+            tp.tensorboard_trace_handler(
+                os.path.join(args.out_dir, "profile")))):
+        return run_pipeline(args)
 
 
 def parse_genome_size(text: Optional[str]) -> Optional[int]:
@@ -523,10 +545,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--stop-after", default=None)
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--profile", action="store_true",
-                        help="profiler trace of the run (not yet "
-                             "ported to flye_tpu_torch; the JAX package "
-                             "writes it under OUT_DIR/profile, its analog of "
-                             "the reference's gprof build)")
+                        help="write a torch.profiler trace of the run "
+                             "(host, and the device's kernels on CUDA) "
+                             "under OUT_DIR/profile, for TensorBoard or "
+                             "chrome://tracing (the analog of the "
+                             "reference's gprof build)")
     parser.add_argument("--device", choices=["cuda", "cpu"],
                         default="cuda",
                         help="device of the tensor work: cuda runs the "
@@ -579,8 +602,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                       debug=args.debug)
     refused = [f"--{stage}" for stage in NOT_PORTED_STAGES
                if getattr(args, stage)]
-    if args.profile:
-        refused.append("--profile")
     if refused:
         logger.error("%s not yet ported to flye_tpu_torch",
                      ", ".join(refused))
@@ -594,6 +615,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             logger.error("Pipeline aborted")
             return 1
     try:
+        if args.profile:
+            return run_profiled(args)
         return run_pipeline(args)
     except PipelineException as e:
         logger.error("%s", e)

@@ -10,17 +10,22 @@ import: the first launch builds, so the CPU-only tests never need nvcc.
 
 `LAUNCHES` counts kernel launches by name.  `launch()` adds one right
 after the launcher returns, and nothing else does, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels.  A launch made while a
+`Graph` captures runs nothing: it is noted on the graph, and each
+`Graph.replay()` adds the graph's captured launches to `LAUNCHES`, so
+the counts stay exact (replays x captured launches).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
 import shutil
 import subprocess
 import threading
+import time
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
@@ -42,12 +47,18 @@ LAUNCHES: Dict[str, int] = {"chain_dp": 0, "polish_backward": 0,
 # end) on the launching thread.  None: no events.
 ON_LAUNCH: Optional[Callable] = None
 
+# The same for CUDA-graph replays: each `Graph.replay()` is bracketed by
+# two CUDA events on its stream, handed over as ON_REPLAY(graph, start,
+# end).  Launches made during a capture record no events.
+ON_REPLAY: Optional[Callable] = None
+
 # source name -> nvcc's output of its last build here (ptxas's registers,
 # shared memory and spills per kernel)
 BUILD_LOG: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_capturing = threading.local()   # .graph: the Graph this thread captures
 
 
 def reset_launches() -> None:
@@ -128,8 +139,17 @@ def check(err: int, what: str) -> None:
 
 def launch(name: str, fn, device: torch.device, *args) -> None:
     """Launch kernel `name` with fn(*args, stream), on the current stream
-    of `device`; raise on its error code, count it in LAUNCHES."""
+    of `device`; raise on its error code, count it in LAUNCHES (or, while
+    a `Graph` captures, on the graph)."""
     stream = torch.cuda.current_stream(device)
+    if torch.cuda.is_current_stream_capturing():
+        graph = getattr(_capturing, "graph", None)
+        if graph is None:
+            raise RuntimeError(f"{name}: launched in a CUDA graph capture "
+                               "that is not a _cuda.Graph's")
+        check(fn(*args, ctypes.c_void_p(stream.cuda_stream)), name)
+        graph.launches[name] = graph.launches.get(name, 0) + 1
+        return
     hook = ON_LAUNCH
     if hook is not None:
         start = torch.cuda.Event(enable_timing=True)
@@ -141,6 +161,62 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
         hook(name, start, end)
     check(err, name)
     LAUNCHES[name] += 1
+
+
+class Graph:
+    """A CUDA graph of a fixed sequence of device work (torch ops and
+    `launch()`es), captured once and replayed.
+
+    `launches`: kernel name -> launches captured (one replay's); `tag`
+    names the graph in a census; `replays` counts its replays;
+    `capture_s`: host seconds its capture took (instantiation included).
+    """
+
+    def __init__(self, tag: str):
+        self.tag = tag
+        self.cuda_graph = torch.cuda.CUDAGraph()
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_s = 0.0
+
+    @contextlib.contextmanager
+    def capture(self, stream, pool=None):
+        """Capture the work queued inside the block on `stream` (not the
+        default stream), allocating from `pool`.  A failed capture
+        raises."""
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            _capturing.graph = self
+            try:
+                self.cuda_graph.capture_begin(pool=pool)
+                try:
+                    yield
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        self.cuda_graph.capture_end()
+                    raise
+                self.cuda_graph.capture_end()
+            finally:
+                _capturing.graph = None
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> None:
+        """Run the captured work on the current stream; count its
+        launches in LAUNCHES and, with ON_REPLAY set, hand the replay's
+        events over."""
+        hook = ON_REPLAY
+        if hook is not None:
+            stream = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        self.cuda_graph.replay()
+        if hook is not None:
+            end.record(stream)
+            hook(self, start, end)
+        self.replays += 1
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -31,7 +31,13 @@ tensor, chosen by shape alone (`cuda_route`):
     branches, (48, 63) at 56).  K4's outputs equal K2+K3's bit for
     bit.
 On the CPU, `polish_bubbles` hands the whole climb to the threaded
-native climber by default, as the JAX package does.
+native climber by default, as the JAX package does.  On a CUDA device
+the climb is device-resident (`_Climb`, the port of `_converge_loop`):
+each batch's inputs go up in one copy, its branch tables are built once
+(`_prepare_branches`), and the steps (`_climb_step`: scoring, then
+`_select_apply`) run as replays of a CUDA graph of _CLIMB_STEPS steps,
+with one read of the stop flag per replay.  FLYE_TPU_HOST_POLL selects
+the host-stepped loop `_converge` instead, as in the JAX package.
 
 Float order: the gap-cost prefix sums use `_cumsum`, the 16-wide blocked
 scan XLA's CPU backend applies to `jnp.cumsum`, and branch sums run in
@@ -41,6 +47,7 @@ scores bit for bit and the kernels reproduce the plain version's.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
@@ -88,20 +95,35 @@ def _wsum(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _tables(cand, cand_len, branches, blen, subs):
-    """Per-lane constant tables shared by the plain version and the
-    kernels' wrappers: gp/sg [B,R,S+1] (branch gap prefix / suffix
-    costs), vgap [B,Cb] (candidate gap costs, 0 past cand_len)."""
-    Bb, Cb = cand.shape
-    S = branches.shape[2]
-    dev = cand.device
+def _branch_gaps(branches, blen, subs):
+    """gp/sg [B,R,S+1]: each branch's gap prefix / suffix costs."""
+    Bb, R, S = branches.shape
+    dev = branches.device
     gap_b = subs[4, :4][branches.long()]                      # [B,R,S]
     jpos = torch.arange(S, device=dev)
     gap_bm = torch.where(jpos < blen[:, :, None], gap_b,
                          torch.zeros((), device=dev))
-    gp = torch.cat([torch.zeros((Bb, gap_bm.shape[1], 1), device=dev),
+    gp = torch.cat([torch.zeros((Bb, R, 1), device=dev),
                     _cumsum(gap_bm)], dim=2)
-    sg = gp[:, :, -1:] - gp
+    return gp, gp[:, :, -1:] - gp
+
+
+def _prepare_branches(branches, blen, bmask, subs):
+    """The per-batch tables of a climb, built once before its loop (the
+    JAX package's `polish_pallas._prepare_branches`): gp, sg [B,R,S+1]
+    and the branch weights w [B,R] (bmask as float32)."""
+    return (*_branch_gaps(branches, blen, subs), bmask.to(torch.float32))
+
+
+def _tables(cand, cand_len, branches, blen, subs, prep=None):
+    """Per-lane constant tables shared by the plain version and the
+    kernels' wrappers: gp/sg [B,R,S+1] (branch gap prefix / suffix
+    costs, taken from `prep` when given) and, per step, vgap [B,Cb]
+    (candidate gap costs, 0 past cand_len)."""
+    Cb = cand.shape[1]
+    dev = cand.device
+    gp, sg = (prep[:2] if prep is not None
+              else _branch_gaps(branches, blen, subs))
     vgap_all = subs[:4, 4][cand.long()]                       # [B,Cb]
     live_c = torch.arange(Cb, device=dev)[None, :] < cand_len[:, None]
     vgap = torch.where(live_c, vgap_all, torch.zeros((), device=dev))
@@ -133,7 +155,7 @@ def _backward_rows(cand, cand_len, branches, blen, subs, tables):
     dev = cand.device
     _, sg, vgap = tables
     ds = _ds(vgap)
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG, device=dev)
     _, match_row = _match_rows(cand, branches, subs)
     in_b = torch.arange(S + 1, device=dev) <= blen[:, :, None]
     diag_ok = torch.arange(S, device=dev) < blen[:, :, None]
@@ -163,7 +185,7 @@ def _forward_scores(cand, branches, blen, bmask, subs, tables, Bm):
     sw, match_row = _match_rows(cand, branches, subs)
     jmask = torch.where(torch.arange(S + 1, device=dev) <= blen[:, :, None],
                         torch.zeros((), device=dev),
-                        torch.tensor(NEG, dtype=torch.float32, device=dev))
+                        torch.full((), NEG, device=dev))
     F = [gp]
     for i in range(Cb):
         prev = F[-1]
@@ -190,15 +212,17 @@ def _forward_scores(cand, branches, blen, bmask, subs, tables, Bm):
     return total, del_raw, torch.stack(ins4), torch.stack(sub4)
 
 
-def _score_edits_raw(cand, cand_len, branches, blen, bmask, subs):
+def _score_edits_raw(cand, cand_len, branches, blen, bmask, subs,
+                     prep=None):
     """Plain version of the scoring kernels (K2 then K3).
 
     cand [B,Cb] uint8, cand_len [B] int32, branches [B,R,S] uint8,
-    blen [B,R] int32, bmask [B,R] bool, subs [5,5] float32.
+    blen [B,R] int32, bmask [B,R] bool, subs [5,5] float32; prep: the
+    batch's `_prepare_branches` tables, built here when None.
     Returns (total [B], del_raw [Cb,B], ins4 [4,Cb+1,B], sub4 [4,Cb,B])
     WITHOUT the position-validity or cand!=x masks (_finish_scores
     applies those after the branch-group reduction)."""
-    tables = _tables(cand, cand_len, branches, blen, subs)
+    tables = _tables(cand, cand_len, branches, blen, subs, prep)
     Bm = _backward_rows(cand, cand_len, branches, blen, subs, tables)
     return _forward_scores(cand, branches, blen, bmask, subs, tables, Bm)
 
@@ -286,14 +310,15 @@ def bitwise_equal(a, b):
 
 
 def _forward_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
-                         tables, bt):
+                         tables, bt, w=None):
     """Launch K3 on K2's suffix rows bt (their live region only); same
-    outputs as _forward_scores."""
+    outputs as _forward_scores.  w: bmask as float32 (`_prepare_
+    branches`), made here when None."""
     Bb, Cb = cand.shape
     _, R, S = branches.shape
     dev = cand.device
     gp, sg, vgap = tables
-    w = bmask.to(torch.float32)
+    w = bmask.to(torch.float32) if w is None else w
     total = torch.empty(Bb, dtype=torch.float32, device=dev)
     del_raw = torch.empty((Cb, Bb), dtype=torch.float32, device=dev)
     ins4 = torch.empty((4, Cb + 1, Bb), dtype=torch.float32, device=dev)
@@ -310,14 +335,15 @@ def _forward_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
     return total, del_raw, ins4, sub4
 
 
-def _score_edits_raw_cuda(cand, cand_len, branches, blen, bmask, subs):
+def _score_edits_raw_cuda(cand, cand_len, branches, blen, bmask, subs,
+                          prep=None):
     """K2 then K3 (csrc/polish_score.cu) on the tensors' CUDA device;
     same contract as _score_edits_raw (blen >= 0)."""
     _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs)
-    tables = _tables(cand, cand_len, branches, blen, subs)
+    tables = _tables(cand, cand_len, branches, blen, subs, prep)
     bt = _backward_rows_cuda(cand, cand_len, branches, blen, subs, tables)
     return _forward_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
-                                tables, bt)
+                                tables, bt, None if prep is None else prep[2])
 
 
 def _tpu_fuses(Cb: int, R: int, S: int) -> bool:
@@ -373,9 +399,9 @@ def cuda_route(fused: bool, Cb: int, R: int, S: int) -> str:
 
 
 def _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
-                       tables):
+                       tables, w=None):
     """Launch K4 on the lanes' tables; same outputs as _forward_scores
-    on _backward_rows."""
+    on _backward_rows.  w: as for _forward_scores_cuda."""
     Bb, Cb = cand.shape
     _, R, S = branches.shape
     if not fits_fused(Cb, R, S):
@@ -383,7 +409,7 @@ def _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
                          f"domain (fits_fused)")
     dev = cand.device
     gp, sg, vgap = tables
-    w = bmask.to(torch.float32)
+    w = bmask.to(torch.float32) if w is None else w
     total = torch.empty(Bb, dtype=torch.float32, device=dev)
     del_raw = torch.empty((Cb, Bb), dtype=torch.float32, device=dev)
     ins4 = torch.empty((4, Cb + 1, Bb), dtype=torch.float32, device=dev)
@@ -401,31 +427,32 @@ def _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
 
 
 def _score_edits_raw_fused_cuda(cand, cand_len, branches, blen, bmask,
-                                subs):
+                                subs, prep=None):
     """K4 (csrc/polish_fused.cu) on the tensors' CUDA device; same
     contract as _score_edits_raw."""
     _check_cuda_inputs(cand, cand_len, branches, blen, bmask, subs,
                        max_r=56)
-    tables = _tables(cand, cand_len, branches, blen, subs)
+    tables = _tables(cand, cand_len, branches, blen, subs, prep)
     return _fused_scores_cuda(cand, cand_len, branches, blen, bmask, subs,
-                              tables)
+                              tables, None if prep is None else prep[2])
 
 
 def score_edits_raw(cand, cand_len, branches, blen, bmask, subs,
-                    fused: bool = False):
+                    fused: bool = False, prep=None):
     """Raw per-char edit scores of every bubble lane: the plain version
     for CPU tensors (K4's as well as K2+K3's); for CUDA tensors K4 or
-    K2+K3 as `cuda_route` picks."""
+    K2+K3 as `cuda_route` picks.  prep: the batch's `_prepare_branches`
+    tables, built per call when None."""
     if cand.device.type == "cpu":
         return _score_edits_raw(cand, cand_len, branches, blen, bmask,
-                                subs)
+                                subs, prep)
     Cb = cand.shape[1]
     _, R, S = branches.shape
     if cuda_route(fused, Cb, R, S) == "polish_fused":
         return _score_edits_raw_fused_cuda(cand, cand_len, branches, blen,
-                                           bmask, subs)
+                                           bmask, subs, prep)
     return _score_edits_raw_cuda(cand, cand_len, branches, blen, bmask,
-                                 subs)
+                                 subs, prep)
 
 
 def _first_argmax(x: torch.Tensor, dim: int):
@@ -460,7 +487,7 @@ def _finish_scores(cand, cand_len, total, del_raw, ins4, sub4,
     Cb = del_raw.shape[0]
     dev = del_raw.device
     zero = torch.zeros((), device=dev)
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG, device=dev)
     pvalid_del = torch.where(torch.arange(Cb, device=dev)[:, None]
                              < cand_len[None, :], zero, neg)
     pvalid_ins = torch.where(torch.arange(Cb + 1, device=dev)[:, None]
@@ -489,8 +516,9 @@ def _select_apply(cand, cand_len, done, streak, it_count, total, del_raw,
     """Pick the best edit of every parity-active block and apply all
     picked edits at once (block precedence follows the reference:
     del > ins > sub, earliest position on ties; steepest=True takes the
-    best-scoring edit type per block instead).  Returns (cand, cand_len,
-    done, streak, total)."""
+    best-scoring edit type per block instead).  it_count: the step, an
+    int or a 0-d device tensor (the block parity is computed where it
+    lies).  Returns (cand, cand_len, done, streak, total)."""
     (total, del_sc, ins_sc, ins_chr, sub_sc,
      sub_chr) = _finish_scores(cand, cand_len, total, del_raw, ins4,
                                sub4, groups)
@@ -512,8 +540,7 @@ def _select_apply(cand, cand_len, done, streak, it_count, total, del_raw,
     insb_best, insb_pos = blk_pick(ins_sc, Cb + 1)
     subb_best, subb_pos = blk_pick(sub_sc, Cb)
 
-    thr = total[None, :] + torch.tensor(_EPS, dtype=torch.float32,
-                                        device=dev)
+    thr = total[None, :] + torch.full((), _EPS, device=dev)
     active = ((blk_ids % 2) == (it_count % 2)) | (nb == 1)
     live = active[:, None] & ~done[None, :]
     if steepest:
@@ -613,6 +640,219 @@ def _converge(cand, cand_len, branches, blen, bmask, subs, groups: int,
     return cand, cand_len, score, iters
 
 
+# climb steps per CUDA graph, and per chunk between two reads of the
+# stop flag on the CPU
+_CLIMB_STEPS = 4
+# device bytes the cached climbs' own buffers (inputs, tables and loop
+# state) may hold together; the least recently used climb goes first
+_CLIMB_CACHE_BYTES = 2 << 30
+_CLIMBS: "collections.OrderedDict[tuple, _Climb]" = collections.OrderedDict()
+_POOLS: dict = {}   # device -> the climbs' shared graph memory pool
+_SIDE: dict = {}    # device -> the stream the climbs warm up and capture on
+_NP = {torch.uint8: np.uint8, torch.int32: np.int32, torch.bool: np.bool_,
+       torch.float32: np.float32}
+
+
+def _expand(x, groups: int):
+    """x [B, ...] -> [B*groups, ...], each lane repeated groups times in
+    a row (`repeat_interleave` without a repeats tensor)."""
+    return x.unsqueeze(1).expand(x.shape[0], groups, *x.shape[1:]).reshape(
+        x.shape[0] * groups, *x.shape[1:])
+
+
+def _climb_step(state, branches, blen, bmask, subs, prep, max_iters,
+                groups: int, block_size: int, steepest: bool, score_fn):
+    """One step of `_converge_loop` (flye_tpu/ops/polish.py) as a pure
+    function of device tensors.  state = (it, cand, cand_len, done,
+    streak, score, iters), it and max_iters 0-d int32.  The loop's
+    condition it < max_iters is a guard here: past it no lane edits and
+    nothing moves, so extra steps are no-ops, as are steps once every
+    lane is done.  Done lanes keep their candidate, length, score and
+    iters; iters counts every step against the old done flag, as
+    `_converge_loop` does.  Nothing here reads the device from the
+    host, so the step can be captured in a CUDA graph."""
+    it, cand, cand_len, done, streak, score, iters = state
+    run = it < max_iters
+    held = done | ~run
+    if groups > 1:
+        cand_s, clen_s = _expand(cand, groups), _expand(cand_len, groups)
+    else:
+        cand_s, clen_s = cand, cand_len
+    raw = score_fn(cand_s, clen_s, branches, blen, bmask, subs, prep=prep)
+    ncand, nlen, ndone, nstreak, total = _select_apply(
+        cand, cand_len, held, streak, it, *raw, groups=groups,
+        block_size=block_size, steepest=steepest)
+    return (it + run.to(it.dtype), torch.where(run, ncand, cand),
+            torch.where(run, nlen, cand_len), torch.where(run, ndone, done),
+            torch.where(run, nstreak, streak),
+            torch.where(held, score, total),
+            torch.where(held, iters, it + 1))
+
+
+class _Climb:
+    """The climb of one batch shape on one device, the port of
+    `_converge_pallas_packed` + `_converge_loop`.
+
+    Its buffers: the batch's inputs laid end to end in one device
+    buffer, filled by one copy from one host buffer (pinned on a CUDA
+    device); the per-batch tables (`_prepare_branches`); the loop state.
+    `run` climbs one batch `steps` steps at a time until one read of the
+    stop flag (every lane done, or it >= max_iters) says so.  On a CUDA
+    device the steps are one CUDA graph, captured at the first batch
+    after one eager step of it on a side stream (which builds the
+    kernels and sets their attributes outside the capture), and
+    replayed: one read per replay, no Python per step.  On the CPU the
+    same steps run eagerly."""
+
+    def __init__(self, shape, device, route: str, groups: int,
+                 block_size: int, steepest: bool, steps: int):
+        B, Cb, Bg, R, S = shape
+        self.shape, self.device, self.route = shape, device, route
+        self.groups, self.block_size = groups, block_size
+        self.steepest, self.steps = steepest, steps
+        self.score_fn = (_score_edits_raw if route == "plain" else
+                         functools.partial(score_edits_raw,
+                                           fused=route == "polish_fused"))
+        fields = (("cand", torch.uint8, (B, Cb)),
+                  ("cand_len", torch.int32, (B,)),
+                  ("branches", torch.uint8, (Bg, R, S)),
+                  ("blen", torch.int32, (Bg, R)),
+                  ("bmask", torch.bool, (Bg, R)),
+                  ("subs", torch.float32, (5, 5)),
+                  ("max_iters", torch.int32, ()))
+        self.fields, self.offs, n = fields, [], 0
+        for _, dt, shp in fields:      # 16-byte aligned, end to end
+            self.offs.append(n)
+            n += -(-int(np.prod(shp)) * dt.itemsize // 16) * 16
+        on_card = device.type == "cuda"
+        self.host = torch.empty(n, dtype=torch.uint8, pin_memory=on_card)
+        self.buf = (torch.empty(n, dtype=torch.uint8, device=device)
+                    if on_card else self.host)
+        self.inp = {name: self.buf[o:o + int(np.prod(shp)) * dt.itemsize]
+                    .view(dt).reshape(shp)
+                    for (name, dt, shp), o in zip(fields, self.offs)}
+
+        def z(shp, dt=torch.float32):
+            return torch.zeros(shp, dtype=dt, device=device)
+        self.state = (z((), torch.int32), z((B, Cb), torch.uint8),
+                      z(B, torch.int32), z(B, torch.bool), z(B, torch.int32),
+                      z(B), z(B, torch.int32))
+        self.prep = (z((Bg, R, S + 1)), z((Bg, R, S + 1)), z((Bg, R)))
+        self.stop = z((), torch.bool)
+        self.graph = None
+
+    @staticmethod
+    def nbytes(shape) -> int:
+        """Device bytes of a climb's own buffers at this shape."""
+        B, Cb, Bg, R, S = shape
+        return (2 * B * Cb + Bg * R * S + 13 * Bg * R + 8 * Bg * R * (S + 1)
+                + 26 * B + 1000)
+
+    def _steps(self, n: int):
+        """n climb steps on the state, in place, then the stop flag."""
+        inp = self.inp
+        for _ in range(n):
+            new = _climb_step(self.state, inp["branches"], inp["blen"],
+                              inp["bmask"], inp["subs"], self.prep,
+                              inp["max_iters"], self.groups,
+                              self.block_size, self.steepest, self.score_fn)
+            for dst, src in zip(self.state, new):
+                dst.copy_(src)
+        self.stop.copy_(self.state[3].all()
+                        | (self.state[0] >= inp["max_iters"]))
+
+    def _load(self, arrays, max_iters: int):
+        """The batch's inputs up in one copy; its tables; the state."""
+        host = self.host.numpy()
+        for (name, dt, shp), o, a in zip(self.fields, self.offs,
+                                         (*arrays, np.int32(max_iters))):
+            raw = np.ascontiguousarray(a, dtype=_NP[dt]).reshape(-1)
+            host[o:o + raw.nbytes] = raw.view(np.uint8)
+        if self.buf is not self.host:
+            self.buf.copy_(self.host, non_blocking=True)
+        inp = self.inp
+        for dst, src in zip(self.prep, _prepare_branches(
+                inp["branches"], inp["blen"], inp["bmask"], inp["subs"])):
+            dst.copy_(src)
+        it, cand, cand_len, done, streak, score, iters = self.state
+        for t in (it, done, streak, score, iters):
+            t.zero_()
+        cand.copy_(inp["cand"])
+        cand_len.copy_(inp["cand_len"])
+
+    def _capture(self):
+        """One eager step of the loaded batch on the side stream, then
+        `steps` steps captured as a CUDA graph in the climbs' pool.  One
+        side stream for every climb: the caching allocator keeps freed
+        blocks per stream, so the warm-ups and the captures of all
+        shapes reuse the same blocks.  The pool lives while a graph of
+        it does; with none left it is taken anew."""
+        dev = self.device
+        if dev not in _SIDE:
+            _SIDE[dev] = torch.cuda.Stream(dev)
+        side = _SIDE[dev]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._steps(1)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        if not any(c.graph is not None and c.device == dev
+                   for c in _CLIMBS.values()):
+            _POOLS[dev] = torch.cuda.graph_pool_handle()
+        B, Cb, Bg, R, S = self.shape
+        graph = _cuda.Graph(f"(Cb,S,R)=({Cb},{S},{R}) x{Bg} {self.route}")
+        with graph.capture(side, _POOLS[dev]):
+            self._steps(self.steps)
+        self.graph = graph
+
+    def run(self, arrays, max_iters: int):
+        """Climb one batch: arrays = (cand, cand_len, branches, blen,
+        bmask, subs), numpy.  Returns numpy (cand, cand_len, score,
+        iters), read back in one copy."""
+        B, Cb, Bg, R, S = self.shape
+        with torch.profiler.record_function(
+                f"climb (Cb,S,R)=({Cb},{S},{R}) x{Bg} {self.route}"):
+            self._load(arrays, max_iters)
+            if self.device.type == "cuda" and self.graph is None:
+                self._capture()
+            while True:
+                if self.graph is not None:
+                    self.graph.replay()
+                else:
+                    self._steps(self.steps)
+                if bool(self.stop):
+                    break
+            _, cand, cand_len, _, _, score, iters = self.state
+            out = torch.cat([cand.reshape(-1), cand_len.view(torch.uint8),
+                             score.view(torch.uint8),
+                             iters.view(torch.uint8)]).cpu().numpy()
+        n = B * Cb
+        return (out[:n].reshape(B, Cb),
+                np.frombuffer(out[n:n + 4 * B].tobytes(), np.int32),
+                np.frombuffer(out[n + 4 * B:n + 8 * B].tobytes(), np.float32),
+                np.frombuffer(out[n + 8 * B:].tobytes(), np.int32))
+
+
+def _climb_for(shape, device, route: str, groups: int, block_size: int,
+               steepest: bool, steps: int) -> _Climb:
+    """A climb for this batch shape: on a CUDA device the cached one
+    (its graph captured once), else a new one."""
+    if device.type != "cuda":
+        return _Climb(shape, device, route, groups, block_size, steepest,
+                      steps)
+    key = (shape, device, route, groups, block_size, steepest, steps)
+    climb = _CLIMBS.pop(key, None)
+    if climb is None:
+        need = _Climb.nbytes(shape)
+        while _CLIMBS and need + sum(_Climb.nbytes(c.shape) for c in
+                                     _CLIMBS.values()) > _CLIMB_CACHE_BYTES:
+            _CLIMBS.popitem(last=False)
+        climb = _Climb(shape, device, route, groups, block_size, steepest,
+                       steps)
+    _CLIMBS[key] = climb
+    return climb
+
+
 def _polish_bubbles_native(cand, cand_len, branches, blen, bmask, subs,
                            max_iters: int, eps: float = _EPS):
     """The whole climb in the threaded native CPU climber
@@ -640,7 +880,7 @@ def _polish_bubbles_native(cand, cand_len, branches, blen, bmask, subs,
 def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
                    max_iters: int, block_size: int = 64,
                    steepest: bool = True, use_kernel=None, device=None,
-                   fused=None):
+                   fused=None, resident=None):
     """Hill-climb every bubble to convergence.
 
     Args:
@@ -651,26 +891,33 @@ def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
       max_iters: outer-iteration cap.
       block_size: parallel-edit block width (0 = serial reference mode).
       use_kernel: None = the device's default (CPU: the native climber;
-        CUDA: the block-parallel schedule on the K2+K3 kernels); True =
-        the block-parallel schedule through `score_edits_raw`; False =
-        the block-parallel schedule on the plain scoring version.
+        CUDA: the block-parallel schedule on the kernels); True = the
+        block-parallel schedule through `score_edits_raw`; False = the
+        block-parallel schedule on the plain scoring version.
       device: where the block-parallel schedule runs (default: the
         runtime's device).
       fused: take K4 on a CUDA device where it fits (`cuda_route`);
         None = whether FLYE_TPU_FUSED is set, as in the JAX package.
+      resident: run the block-parallel schedule as the device-resident
+        climb (`_Climb`: CUDA-graph replays on a CUDA device, the same
+        steps eagerly on the CPU) instead of the host-stepped loop
+        `_converge`.  None = on a CUDA device when the kernels score
+        and FLYE_TPU_HOST_POLL is not set, as the JAX package chooses
+        its `_converge_loop`.
 
     Returns numpy (cand [B, Cb], cand_len [B], score [B], iters [B]).
     """
     from flye_tpu_torch.parallel.runtime import get_runtime
     device = torch.device(device if device is not None
                           else get_runtime().device)
-    if use_kernel is None and device.type == "cpu":
+    if resident is None:
+        resident = (device.type == "cuda" and use_kernel is not False
+                    and not os.environ.get("FLYE_TPU_HOST_POLL"))
+    if use_kernel is None and device.type == "cpu" and not resident:
         return _polish_bubbles_native(cand, cand_len, branches, blen,
                                       bmask, subs, max_iters)
     if fused is None:
         fused = bool(os.environ.get("FLYE_TPU_FUSED"))
-    score_fn = (_score_edits_raw if use_kernel is False
-                else functools.partial(score_edits_raw, fused=fused))
 
     # branch-group tiling: lanes of <= 8 branch rows (score sums over
     # branches decompose exactly; the char argmax follows the group
@@ -688,15 +935,31 @@ def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
         blen = blen.reshape(B0 * groups, _GSZ)
         bmask = bmask.reshape(B0 * groups, _GSZ)
 
+    if resident:
+        Cb = cand.shape[1]
+        route = ("plain" if use_kernel is False or device.type == "cpu"
+                 else cuda_route(fused, Cb, branches.shape[1], S))
+        climb = _climb_for((cand.shape[0], Cb, *branches.shape), device,
+                           route, groups, block_size, steepest,
+                           _CLIMB_STEPS)
+        return climb.run((cand, cand_len, branches, blen, bmask, subs),
+                         max_iters)
+
+    score_fn = (_score_edits_raw if use_kernel is False
+                else functools.partial(score_edits_raw, fused=fused))
+
     def put(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=dt),
                                device=device)
     # the done flags are read back every 4 iterations on a GPU (each
     # read is a device sync); every iteration on the CPU
     poll_every = 1 if device.type == "cpu" else 4
-    out = _converge(put(cand, np.uint8), put(cand_len, np.int32),
-                    put(branches, np.uint8), put(blen, np.int32),
-                    put(bmask, np.bool_), put(subs, np.float32),
-                    groups, block_size, steepest, max_iters,
-                    score_fn=score_fn, poll_every=poll_every)
-    return tuple(t.cpu().numpy() for t in out)
+    Bg, R, S = branches.shape
+    with torch.profiler.record_function(
+            f"climb (Cb,S,R)=({cand.shape[1]},{S},{R}) x{Bg} host-stepped"):
+        out = _converge(put(cand, np.uint8), put(cand_len, np.int32),
+                        put(branches, np.uint8), put(blen, np.int32),
+                        put(bmask, np.bool_), put(subs, np.float32),
+                        groups, block_size, steepest, max_iters,
+                        score_fn=score_fn, poll_every=poll_every)
+        return tuple(t.cpu().numpy() for t in out)

@@ -78,12 +78,16 @@ def device_memory() -> Optional[tuple]:
 def stage_timer(name: str, logger: Optional[logging.Logger] = None):
     """Per-stage wall-clock timing + memory introspection (the reference
     keeps per-phase timers in its hot loops, src/sequence/overlap.cpp:
-    128-158, and logs RSS at stage boundaries via memory_info.h)."""
+    128-158, and logs RSS at stage boundaries via memory_info.h).  The
+    step is also a range of that name in a `--profile` trace."""
+    from torch.profiler import record_function
+
     log = logger or logging.getLogger("flye_tpu_torch")
     start = time.monotonic()
     log.info("%s: started", name)
     try:
-        yield
+        with record_function(name):
+            yield
     finally:
         rss, peak = host_memory()
         dev = device_memory()

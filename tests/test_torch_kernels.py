@@ -270,6 +270,75 @@ def test_hill_climb_kernels_match_plain(cuda_device):
         np.testing.assert_array_equal(k[0][i, :k[1][i]], true[i])
 
 
+def climb_inputs(B=16, C=30, Cb=40, S=60, R=24, seed=7):
+    """Bubbles with two planted errors each and noisy branches (three
+    groups of 8 branch rows a bubble)."""
+    rng = np.random.default_rng(seed)
+    true = rng.integers(0, 4, (B, C)).astype(np.uint8)
+    cand = np.zeros((B, Cb), np.uint8)
+    cand[:, :C] = true
+    for i in range(B):
+        idx = rng.integers(0, C, 2)
+        cand[i, idx] = (cand[i, idx] + 1) % 4
+    branches = np.zeros((B, R, S), np.uint8)
+    branches[:, :, :C] = true[:, None, :]
+    flip = rng.random((B, R, S)) < 0.05
+    branches = np.where(flip, rng.integers(0, 4, (B, R, S)),
+                        branches).astype(np.uint8)
+    blen = rng.integers(C - 2, C + 3, (B, R)).astype(np.int32)
+    bmask = rng.random((B, R)) < 0.9
+    bmask[:, 0] = True
+    subs = np.log(np.full((5, 5), 0.05, np.float32))
+    np.fill_diagonal(subs[:4, :4], np.log(0.8))
+    return cand, np.full(B, C, np.int32), branches, blen, bmask, subs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused,route", [
+    (False, ("polish_backward", "polish_forward_score")),
+    (True, ("polish_fused",))])
+def test_graph_climb_matches_host_stepped(cuda_device, monkeypatch, fused,
+                                          route):
+    """The CUDA-graph climb (K2+K3, and K4 with fused) writes the same
+    candidates, lengths and scores as the host-stepped loop
+    (FLYE_TPU_HOST_POLL) and all four outputs bit for bit as the same
+    climb on the CPU through the plain version; LAUNCHES counts the
+    graph's warm-up step and replays x captured launches exactly."""
+    args = climb_inputs()
+    monkeypatch.delenv("FLYE_TPU_HOST_POLL", raising=False)
+    TP._CLIMBS.clear()
+    outs = []
+    for _ in range(2):          # capture, then the cached graph
+        before = dict(_cuda.LAUNCHES)
+        outs.append(TP.polish_bubbles(*args, max_iters=80, fused=fused,
+                                      device=cuda_device))
+        took = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+        (climb,) = TP._CLIMBS.values()
+        graph = climb.graph
+        assert set(graph.launches) == set(route)
+        for name in route:
+            per_step = graph.launches[name] // TP._CLIMB_STEPS
+            assert graph.launches[name] == per_step * TP._CLIMB_STEPS > 0
+            warm = per_step if len(outs) == 1 else 0
+            assert took[name] == warm + graph.launches[name] * (
+                graph.replays - getattr(graph, "_seen", 0))
+        graph._seen = graph.replays
+        assert sum(took.values()) == sum(took[n] for n in route)
+    for a, b in zip(*outs):
+        assert a.tobytes() == b.tobytes()
+    cpu = TP.polish_bubbles(*args, max_iters=80, device="cpu",
+                            resident=True)
+    for a, b in zip(outs[0], cpu):
+        assert a.tobytes() == b.tobytes()
+    monkeypatch.setenv("FLYE_TPU_HOST_POLL", "1")
+    before = dict(_cuda.LAUNCHES)
+    host = TP.polish_bubbles(*args, max_iters=80, fused=fused,
+                             device=cuda_device)
+    assert _cuda.LAUNCHES[route[0]] > before[route[0]]
+    for a, b in zip(outs[0][:3], host[:3]):
+        assert a.tobytes() == b.tobytes()
+
+
 def lev_inputs(B, S, seed, codes=(0, 1, 2, 3)):
     """Random and related pairs with the edge rows first: alen 0, blen
     0, both 0, both full, identical full-length strings; the codes drawn
