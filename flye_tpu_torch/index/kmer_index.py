@@ -21,9 +21,12 @@ the reference's KmerPosIterator (reference: src/sequence/vertex_index.h:158-174)
 
 Port of `flye_tpu/index/kmer_index.py`, single-device paths only: the
 w > 1 minimizer selection runs `ops.kmers.stream_select_packed` on the
-runtime's device; the w = 1 extraction, counting, selection, sorting and
-probing run in the native C++ helpers on the host, as in the JAX
-package's single-device path. The repeat-kmer cutoff (repeat_kmer_rate x mean frequency,
+runtime's device; by default the w = 1 extraction, counting, selection,
+sorting and probing run in the native C++ helpers on the host, as in the
+JAX package's single-device path.  The device solid-k-mer selection
+(`build_solid(device_select=True)`, or FLYE_TPU_DEVICE_COUNT=1) and the
+device probe (`probe_stream_flat`, `probe_batch`, `lookup`) run on the
+runtime's device and give the same index and hits.  The repeat-kmer cutoff (repeat_kmer_rate x mean frequency,
 reference: vertex_index.cpp:173-212 filterFrequentKmers) drops postings
 of repetitive k-mers but keeps them queryable via `is_repetitive`.
 """
@@ -37,11 +40,33 @@ import numpy as np
 import torch
 
 from flye_tpu_torch.io.seqstore import SequenceStore
+from flye_tpu_torch.ops.kmers import canonical_kmers, probe_words
 
 logger = logging.getLogger("flye_tpu_torch")
 
+
+def _lookup_device(uniq, q, rmax):
+    """Row of each query k-mer in the sorted table (clamped to rmax) and
+    whether the k-mer is there."""
+    row = torch.searchsorted(uniq, q).clamp_(0, rmax)
+    return row, uniq[row] == q
+
+
+def _probe_device(batch, lens, uniq, repet, rmax, k, narrow):
+    """Fused canonicalize + index probe for a padded query batch: one
+    packed word per position (`ops.kmers.probe_words`)."""
+    canon, is_fwd, valid = canonical_kmers(batch, lens, k)
+    return probe_words(canon, is_fwd, valid, uniq, repet, rmax, narrow)
+
+
 class KmerIndex:
     """Posting-list index over a SequenceStore."""
+
+    # single-device probing may run on the host (native probe_stream);
+    # an index whose table is partitioned across devices (the JAX
+    # package's ShardedKmerIndex) sets this False and keeps the device
+    # path
+    host_probe_ok = True
 
     def __init__(self, store: SequenceStore, k: int):
         self.store = store
@@ -55,6 +80,7 @@ class KmerIndex:
         self.repetitive: np.ndarray = None  # [U] bool
         self.repetitive_cutoff: float = float("inf")
         self.sample_rate: float = 1.0  # mean bases per indexed position
+        self._tables = None  # padded (uniq, repetitive) on the device
 
     # the fields that define a built index (the JAX KmerIndex's names)
     FIELDS = ("uniq_kmers", "offsets", "counts", "post_seq", "post_pos",
@@ -96,6 +122,49 @@ class KmerIndex:
             yield r0, S
             r0 += min(S, n_rows - r0)
 
+    @staticmethod
+    def _read_stream(store, ids):
+        """(starts [len(ids)+1] int64 read offsets, n_total, the reads
+        concatenated) of the flat-stream layout."""
+        lens = np.asarray([store.length(s) for s in ids], dtype=np.int64)
+        starts = np.zeros(len(ids) + 1, dtype=np.int64)
+        np.cumsum(lens, out=starts[1:])
+        n_total = int(starts[-1])
+        stream = (np.concatenate([store.get(s) for s in ids]) if ids
+                  else np.zeros(0, dtype=np.uint8))
+        return starts, n_total, stream
+
+    @staticmethod
+    def _padded_starts(starts, n_total):
+        """starts padded with n_total to a power of two (>= 64)."""
+        Sp = 1 << max(6, (len(starts) - 1).bit_length())
+        starts_p = np.full(Sp, n_total, dtype=np.int64)
+        starts_p[:len(starts)] = starts
+        return starts_p
+
+    def _stream_chunks(self, stream, n_total, w):
+        """Yield (r0, chunk) over the stream cut into overlapping rows of
+        _STREAM_W bases: row r holds stream positions r*step - (w-1) + col,
+        step = W - (k-1) - 2*(w-1); chunk is a [512 or 64, W] uint8 host
+        batch (_stream_row_batches), zero-padded past the last row."""
+        k, W = self.k, self._STREAM_W
+        step = W - (k - 1) - 2 * (w - 1)
+        n_rows = max(1, -(-max(0, n_total - k + 1) // step))
+        # left pad w-1 (row margins), right pad to the row grid
+        pad_stream = np.zeros((w - 1) + n_rows * step + (W - step),
+                              dtype=np.uint8)
+        pad_stream[w - 1:w - 1 + n_total] = stream
+        strided = np.lib.stride_tricks.as_strided(
+            pad_stream, shape=(n_rows, W), strides=(step, 1))
+        for r0, nr in self._stream_row_batches(n_rows):
+            rows = strided[r0:r0 + nr]
+            if len(rows) < nr:
+                chunk = np.zeros((nr, W), dtype=np.uint8)
+                chunk[:len(rows)] = rows
+            else:
+                chunk = np.ascontiguousarray(rows)
+            yield r0, chunk
+
     def _extract_selected(self, ids, w: int, sample: int):
         """Run the fused selection over the flat read stream (on the
         runtime's device) and compact to triple arrays (canon kmer, seq
@@ -112,31 +181,12 @@ class KmerIndex:
         if not ids:
             z = np.zeros(0, dtype=np.int64)
             return z, z.astype(np.int32), z.astype(np.int32), z.astype(bool)
-        lens = np.asarray([self.store.length(s) for s in ids],
-                          dtype=np.int64)
-        starts = np.zeros(len(ids) + 1, dtype=np.int64)
-        np.cumsum(lens, out=starts[1:])
-        n_total = int(starts[-1])
-        stream = np.concatenate([self.store.get(s) for s in ids])
-
-        W = self._STREAM_W
-        step = W - (k - 1) - 2 * (w - 1)
-        n_rows = max(1, -(-max(0, n_total - k + 1) // step))
-        # left pad w-1 (row margins), right pad to the row grid
-        pad_stream = np.zeros((w - 1) + n_rows * step + (W - step),
-                              dtype=np.uint8)
-        pad_stream[w - 1:w - 1 + n_total] = stream
-
-        # starts table padded to a power of two (stable device shape)
-        Sp = 1 << max(6, (len(starts) - 1).bit_length())
-        starts_p = np.full(Sp, n_total, dtype=np.int64)
-        starts_p[:len(starts)] = starts
+        starts, n_total, stream = self._read_stream(self.store, ids)
 
         if w == 1:
-            # single-device w=1 extraction runs on the host: the device
-            # pass is latency/transfer-bound here (same trade as
-            # probe_stream_host), and the native rolling extraction is
-            # byte-identical (tests/test_index.py builds go through it)
+            # single-device w=1 extraction runs on the host (the JAX
+            # package's default; `_solid_select_device` is the device
+            # path), and the native rolling extraction is byte-identical
             from flye_tpu_torch import native
             mod = native.get()
             kb, rb, pb, fb = mod.extract_kmers(
@@ -151,18 +201,10 @@ class KmerIndex:
 
         from flye_tpu_torch.parallel.runtime import get_runtime
         rt = get_runtime()
-        starts_dev = rt.shard_rows(starts_p)
+        step = self._STREAM_W - (k - 1) - 2 * (w - 1)
+        starts_dev = rt.shard_rows(self._padded_starts(starts, n_total))
         kmers_l, seq_l, pos_l, flip_l = [], [], [], []
-        strided = np.lib.stride_tricks.as_strided(
-            pad_stream, shape=(n_rows, W), strides=(step, 1))
-        for r0, nr in self._stream_row_batches(n_rows):
-            rows = strided[r0:r0 + nr]
-            nb = len(rows)
-            if nb < nr:
-                chunk = np.zeros((nr, W), dtype=np.uint8)
-                chunk[:nb] = rows
-            else:
-                chunk = np.ascontiguousarray(rows)
+        for r0, chunk in self._stream_chunks(stream, n_total, w):
             packed = stream_select_packed(
                 rt.shard_rows(chunk), starts_dev, r0, n_total,
                 k=k, w=w, sample=sample, step=step)
@@ -180,6 +222,69 @@ class KmerIndex:
             flip_l.append((p >> 1) & 1 == 0)
         return (np.concatenate(kmers_l), np.concatenate(seq_l),
                 np.concatenate(pos_l), np.concatenate(flip_l))
+
+    @staticmethod
+    def _p90_ranks(lens, k, sample, n_pad):
+        """Per read, the rank of its p90 frequency (nearest rank) among
+        the (read, freq)-sorted valid positions of the stream, zero-padded
+        to n_pad: the selection keeps every sample-th position of a
+        read, so the valid counts follow from the read lengths."""
+        n_valid = np.where(lens >= k, -(-(lens - k + 1) // sample), 0)
+        prefix = np.concatenate([[0], np.cumsum(n_valid)])
+        idx90 = np.zeros(n_pad, dtype=np.int64)
+        idx90[:len(lens)] = prefix[:-1] + np.minimum(
+            np.maximum(n_valid - 1, 0), (0.9 * n_valid).astype(np.int64))
+        return idx90
+
+    def _solid_select_device(self, ids, select_rate: float,
+                             tandem_freq: int, global_min_freq: int,
+                             sample: int):
+        """Device pass A of build_solid: the w = 1 selection words stay
+        on the runtime's device, counting, the per-read threshold and
+        the tandem filter run there (`ops.kmers.solid_select_device`),
+        and only the selected postings come back.  Returns the selected
+        (kmers, seq, pos, flip) in stream order, as
+        `_solid_select_host`."""
+        from flye_tpu_torch.ops.kmers import (solid_select_device,
+                                              stream_select_packed)
+        from flye_tpu_torch.parallel.runtime import get_runtime
+        k, W = self.k, self._STREAM_W
+        ids = list(ids)
+        starts, n_total, stream = self._read_stream(self.store, ids)
+        if n_total == 0:
+            z = np.zeros(0, dtype=np.int64)
+            return (z, z.astype(np.int32), z.astype(np.int32),
+                    z.astype(bool))
+        step = W - (k - 1)
+        starts_p = self._padded_starts(starts, n_total)
+        rt = get_runtime()
+        starts_dev = rt.shard_rows(starts_p)
+        # the row batches are consecutive (only the last is padded), so
+        # row i of the whole buffer is stream row i
+        batches = list(self._stream_chunks(stream, n_total, 1))
+        packed = torch.empty(sum(len(c) for _, c in batches) * W,
+                             dtype=torch.int64, device=rt.device)
+        off = 0
+        for r0, chunk in batches:
+            packed[off:off + chunk.size] = stream_select_packed(
+                rt.shard_rows(chunk), starts_dev, r0, n_total, k=k, w=1,
+                sample=sample, step=step).view(-1)
+            off += chunk.size
+        del batches
+
+        idx90 = self._p90_ranks(np.diff(starts), k, sample, len(starts_p))
+        pk, pg, _ = solid_select_device(
+            packed, starts_dev, rt.shard_rows(idx90), select_rate, k=k,
+            W=W, step=step, tandem_freq=tandem_freq,
+            global_min=global_min_freq)
+        del packed
+        pk_h, pg_h = pk.cpu().numpy(), pg.cpu().numpy()
+        rid = np.searchsorted(starts, pg_h, side="right") - 1
+        kmers = (pk_h.view(np.uint64) >> np.uint64(2)).astype(np.int64)
+        flip = (pk_h >> 1) & 1 == 0
+        seq = np.asarray([s >> 1 for s in ids], dtype=np.int32)[rid]
+        pos = (pg_h - starts[rid]).astype(np.int32)
+        return kmers, seq, pos, flip
 
     @staticmethod
     def _sort_triples(kmers, seq, pos, flip):
@@ -225,6 +330,7 @@ class KmerIndex:
             keep = ~drop_mask
             kmers, seq, pos, flip = kmers[keep], seq[keep], pos[keep], flip[keep]
         n = len(kmers)
+        self._tables = None
         if n == 0:
             self.uniq_kmers = np.zeros(0, dtype=np.int64)
             self.offsets = np.zeros(1, dtype=np.int64)
@@ -301,26 +407,40 @@ class KmerIndex:
                     select_rate: float, tandem_freq: int,
                     global_min_freq: int = 2, sample: int = 1,
                     repeat_kmer_rate: float = 100,
-                    ids: Optional[Sequence[int]] = None) -> "KmerIndex":
+                    ids: Optional[Sequence[int]] = None,
+                    device_select: Optional[bool] = None) -> "KmerIndex":
         """Uneven-coverage solid-kmer index: per read, keep the top
         `select_rate` fraction of positions by global canonical-kmer
         frequency (ties extend the cut), drop within-read tandems
         (reference: vertex_index.cpp:25-125, 440-480).
 
-        Counting and selection run on the host (the JAX package's
-        default); its device-resident selection is not yet ported."""
+        device_select: count and select on the runtime's device
+        (`_solid_select_device`) instead of the host; None reads
+        FLYE_TPU_DEVICE_COUNT=1, and the default is the host, as in the
+        JAX package.  Both give the same index.  Unlike the JAX package,
+        a failure of the device selection raises: there is no fallback
+        to host counting."""
+        import os
         idx = cls(store, k)
         idx.w = 1
         ids = list(ids) if ids is not None else store.ids()
         logger.info("Building solid-kmer index (k=%d) over %d seqs",
                     k, len(ids))
-        # pass A: global canonical-kmer counts (sampled)
-        kmers, seq, pos, flip = idx._solid_select_host(
-            ids, select_rate, tandem_freq, global_min_freq, sample)
-        if len(kmers) == 0:
-            idx._finalize(kmers, seq, pos, flip, global_min_freq,
-                          repeat_kmer_rate)
-            return idx
+        if device_select is None:
+            device_select = os.environ.get(
+                "FLYE_TPU_DEVICE_COUNT", "") == "1"
+        # pass A: global canonical-kmer counts (sampled) and selection
+        if device_select:
+            kmers, seq, pos, flip = idx._solid_select_device(
+                ids, select_rate, tandem_freq, global_min_freq, sample)
+        else:
+            kmers, seq, pos, flip = idx._solid_select_host(
+                ids, select_rate, tandem_freq, global_min_freq, sample)
+            if len(kmers) == 0:
+                # the JAX package's host path keeps sample_rate 1.0 here
+                idx._finalize(kmers, seq, pos, flip, global_min_freq,
+                              repeat_kmer_rate)
+                return idx
         kmers, seq, pos, flip = cls._sort_triples(kmers, seq, pos, flip)
         idx._finalize(kmers, seq, pos, flip, global_min_freq,
                       repeat_kmer_rate)
@@ -427,6 +547,56 @@ class KmerIndex:
     def index_size(self) -> int:
         return len(self.post_seq) if self.post_seq is not None else 0
 
+    def _device_tables(self):
+        """(uniq_kmers, repetitive) on the runtime's device, padded to a
+        power of two (>= 1024) with max-int64 / False tails, built once
+        per index."""
+        if self._tables is None:
+            from flye_tpu_torch.parallel.runtime import get_runtime
+            U = self.num_kmers
+            Up = 1 << max(10, (U - 1).bit_length())
+            up = np.full(Up, np.iinfo(np.int64).max, np.int64)
+            up[:U] = self.uniq_kmers
+            rp = np.zeros(Up, dtype=bool)
+            rp[:U] = self.repetitive
+            self._tables = get_runtime().shard_rows(up, rp)
+        return self._tables
+
+    def lookup(self, query_kmers: np.ndarray):
+        """[Q] int64 canonical k-mers -> (row [Q] int64 into the uniq
+        arrays, found [Q] bool), on the runtime's device."""
+        q = np.ascontiguousarray(query_kmers, dtype=np.int64)
+        Q = len(q)
+        if Q == 0 or self.num_kmers == 0:
+            return np.zeros(Q, dtype=np.int64), np.zeros(Q, dtype=bool)
+        up, _ = self._device_tables()
+        row, found = _lookup_device(up, torch.from_numpy(q).to(up.device),
+                                    self.num_kmers - 1)
+        return row.cpu().numpy(), found.cpu().numpy()
+
+    def probe_batch(self, batch, lens):
+        """Fused canonicalize + lookup over a padded query batch
+        ([rows, pad] uint8 codes, [rows] lengths), on the runtime's
+        device.  Returns (row [rows, pad] int64, hit, rep, fwd bool
+        arrays) from one packed word per position (_probe_device)."""
+        up, rp = self._device_tables()
+        narrow = self.num_kmers < (1 << 28)
+        b, ln = (torch.from_numpy(np.ascontiguousarray(x)).to(up.device)
+                 for x in (batch, lens))
+        packed = _probe_device(b, ln, up, rp, max(0, self.num_kmers - 1),
+                               self.k, narrow).cpu().numpy()
+        shift = 28 if narrow else 32
+        row = (packed & ((1 << shift) - 1)).astype(np.int64)
+        hit = ((packed >> shift) & 1).astype(bool)
+        rep = ((packed >> (shift + 1)) & 1).astype(bool)
+        fwd = ((packed >> (shift + 2)) & 1).astype(bool)
+        return row, hit, rep, fwd
+
+    def _remap_rows(self, row: np.ndarray) -> np.ndarray:
+        """Hook for subclasses whose device probe table is a re-sorted
+        view of the uniq arrays (the JAX package's ShardedKmerIndex)."""
+        return row
+
     def _host_probe_lut(self):
         """16-bit-prefix lookup table into the sorted uniq array
         (prefix = kmer >> shift); bounds each native probe's binary
@@ -444,8 +614,9 @@ class KmerIndex:
 
     def probe_stream_host(self, store, sids):
         """Probe every k-mer of the given query strands against the
-        index in the threaded native prober (the JAX package's
-        single-device default; its device probe is not yet ported).
+        index in the threaded native prober (the single-device default),
+        or None when this index must be probed on the device
+        (`host_probe_ok` False).
 
         Returns (g_hit, row_hit, fwd_hit, g_rep, starts, n_total):
           g_hit  [H] int64 ascending stream positions with index hits,
@@ -454,30 +625,70 @@ class KmerIndex:
           g_rep  [F] int64 stream positions filtered as repetitive,
           starts [len(sids)+1] int64 per-read stream offsets.
         """
+        if not self.host_probe_ok:
+            return None
         from flye_tpu_torch import native
         mod = native.get()
-        k = self.k
-        lens = np.asarray([store.length(s) for s in sids],
-                          dtype=np.int64)
-        starts = np.zeros(len(sids) + 1, dtype=np.int64)
-        np.cumsum(lens, out=starts[1:])
-        n_total = int(starts[-1])
+        starts, n_total, stream = self._read_stream(store, sids)
         z = np.zeros(0, dtype=np.int64)
         if n_total == 0 or self.num_kmers == 0:
             return z, z, z.astype(bool), z, starts, n_total
-        stream = np.ascontiguousarray(
-            np.concatenate([store.get(s) for s in sids]),
-            dtype=np.uint8)
         lut, shift = self._host_probe_lut()
         g_hit_b, row_b, fwd_b, grep_b = mod.probe_stream(
-            stream, starts, len(sids),
+            np.ascontiguousarray(stream, dtype=np.uint8), starts,
+            len(sids),
             np.ascontiguousarray(self.uniq_kmers, dtype=np.int64),
             np.ascontiguousarray(self.repetitive).view(np.uint8),
-            lut, int(k), int(shift))
+            lut, int(self.k), int(shift))
         return (np.frombuffer(g_hit_b, np.int64),
                 np.frombuffer(row_b, np.int64),
                 np.frombuffer(fwd_b, np.uint8).astype(bool),
                 np.frombuffer(grep_b, np.int64), starts, n_total)
+
+    def probe_stream_flat(self, store, sids):
+        """Probe every k-mer of the given query strands on the runtime's
+        device (`ops.kmers.stream_probe_packed` over the flat stream,
+        512- or 64-row batches); only the positions with a hit or a
+        repetitive k-mer come back.  Returns what probe_stream_host
+        returns, equal to it."""
+        from flye_tpu_torch.ops.kmers import stream_probe_packed
+        from flye_tpu_torch.parallel.runtime import get_runtime
+
+        k = self.k
+        starts, n_total, stream = self._read_stream(store, sids)
+        if n_total == 0 or self.num_kmers == 0:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z, z.astype(bool), z, starts, n_total
+        rt = get_runtime()
+        step = self._STREAM_W - (k - 1)
+        starts_dev = rt.shard_rows(self._padded_starts(starts, n_total))
+        up, rp = self._device_tables()
+        narrow = self.num_kmers < (1 << 28)
+        shift = 28 if narrow else 32
+        g_l, p_l = [], []
+        for r0, chunk in self._stream_chunks(stream, n_total, 1):
+            packed = stream_probe_packed(
+                rt.shard_rows(chunk), starts_dev, r0, n_total, up, rp,
+                max(0, self.num_kmers - 1), k=k, step=step, narrow=narrow)
+            rsel, cols = torch.nonzero((packed >> shift) & 3,  # hit | rep
+                                       as_tuple=True)
+            p_l.append(packed[rsel, cols].cpu().numpy())
+            g_l.append(((r0 + rsel) * step + cols).cpu().numpy())
+        p, g = np.concatenate(p_l), np.concatenate(g_l)
+        is_hit = ((p >> shift) & 1).astype(bool)
+        ph = p[is_hit]
+        row_hit = self._remap_rows(
+            (ph & ((1 << shift) - 1)).astype(np.int64))
+        fwd_hit = ((ph >> (shift + 2)) & 1).astype(bool)
+        return g[is_hit], row_hit, fwd_hit, g[~is_hit], starts, n_total
+
+    def kmer_freq(self, query_kmers: np.ndarray) -> np.ndarray:
+        row, found = self.lookup(query_kmers)
+        return np.where(found, self.counts[row], 0)
+
+    def is_repetitive(self, query_kmers: np.ndarray) -> np.ndarray:
+        row, found = self.lookup(query_kmers)
+        return found & self.repetitive[row]
 
     def get_postings(self, row: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         s, e = self.offsets[row], self.offsets[row + 1]

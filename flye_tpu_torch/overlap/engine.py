@@ -3,8 +3,11 @@
 Port of `flye_tpu/overlap/engine.py` (behavioral port of
 OverlapDetector/OverlapContainer, reference: src/sequence/overlap.{h,cpp}):
 
-- index probing, posting expansion, group preparation, small-group chain
-  DP, backtracking and overlap tests run in the native C++ helpers;
+- index probing runs in the native C++ helpers by default, or on the
+  runtime's device under FLYE_TPU_PROBE=device (or `auto`, which times
+  both on the first batch and keeps the faster);
+- posting expansion, group preparation, small-group chain DP,
+  backtracking and overlap tests run in the native C++ helpers;
 - groups wider than `host_dp_max` chain on the runtime's device through
   `ops.chain.chain_dp_multi` (the K1 CUDA kernel on a GPU);
 - base-level divergence goes through the anchored segment batcher
@@ -46,8 +49,9 @@ from time import perf_counter as _pc
 _PHASE: Dict[str, float] = _dd(float)
 
 # the prefetch thread pipeline may issue device calls from two threads;
-# device sections take this lock so one batch's DP runs at a time (host
-# prep/finish still overlaps: native C++ sections release the GIL)
+# device sections take this lock so one batch's probe or DP runs at a
+# time (host prep/finish still overlaps: native C++ sections release the
+# GIL)
 import threading as _threading
 
 _DEVICE_LOCK = _threading.Lock()
@@ -124,6 +128,11 @@ class OverlapEngine:
         # DP's bounded window because host_dp_max <= lookback); wider
         # groups run the device DP.  See _finish_from_matches.
         self.host_dp_max = min(1024, _LOOKBACK)
+        # index probe path: "host" (native), "device", or "auto" (time
+        # both on the first real batch and latch the faster); set from
+        # FLYE_TPU_PROBE on the first batch (see _probe_choice)
+        self._probe_path: Optional[str] = None
+        self._probe_lock = _threading.Lock()
         # mapping mode keeps every chain anchor (needed for window
         # partitioning); assembly thins to >k spacing like the
         # reference's kept-alignment trace
@@ -158,12 +167,50 @@ class OverlapEngine:
 
     # ------------------------------------------------------------------
 
+    def _probe_choice(self) -> str:
+        """The probe path of this batch: the latched choice, else
+        FLYE_TPU_PROBE (host | device | auto), default "host" as in the
+        JAX package.  "auto" returns "measure" (see _match_streams)."""
+        if self._probe_path is not None:
+            return self._probe_path
+        import os
+        env = os.environ.get("FLYE_TPU_PROBE", "").lower()
+        if env in ("host", "device"):
+            self._probe_path = env
+            return env
+        if env == "auto":
+            return "measure"
+        self._probe_path = "host"
+        return "host"
+
+    def _tune_probe(self, query_store, sids):
+        """FLYE_TPU_PROBE=auto: time both probe paths on this batch and
+        latch the faster; returns the host result when the host won
+        (the outputs are equal), else None."""
+        t0 = _pc()
+        host_res = self.index.probe_stream_host(query_store, sids)
+        t_host = _pc() - t0
+        if host_res is None:
+            self._probe_path = "device"
+            return None
+        with _DEVICE_LOCK:
+            # a warm-up pass, then the timed one
+            self.index.probe_stream_flat(query_store, sids)
+            t0 = _pc()
+            self.index.probe_stream_flat(query_store, sids)
+            t_dev = _pc() - t0
+        self._probe_path = "host" if t_host <= t_dev else "device"
+        logger.info("probe path auto-tune: host %.2fs vs device %.2fs "
+                    "per batch -> %s", t_host, t_dev, self._probe_path)
+        return host_res if self._probe_path == "host" else None
+
     def _batch_fast(self, mod, query_store, sids, force_local,
                     max_overlaps, symmetric):
-        """Native-assisted batch path: index probe, posting expansion,
-        group segmentation / survival filters, small-group chain DP,
-        and the backtrack + overlap tests + anchor thinning + divergence
-        all run in C++ threads (native probe_stream / collect_matches /
+        """Native-assisted batch path: the index probe (native
+        probe_stream, or the device under FLYE_TPU_PROBE), then posting
+        expansion, group segmentation / survival filters, small-group
+        chain DP, and the backtrack + overlap tests + anchor thinning +
+        divergence all run in C++ threads (native collect_matches /
         chain_group_prep / chain_dp_host / finish_overlaps); only wide
         groups' DP rides the device (reference analog:
         src/sequence/overlap.cpp:99-427)."""
@@ -182,8 +229,21 @@ class OverlapEngine:
         chain/finish half needs."""
         nq = len(sids)
         lengths = [query_store.length(s) for s in sids]
+        probe_res = None
         with _phase("probe"):
-            probe_res = self.index.probe_stream_host(query_store, sids)
+            if self._probe_choice() == "measure":
+                # the prefetch threads' first batches arrive together:
+                # one measures, the others wait for its choice
+                with self._probe_lock:
+                    if self._probe_path is None:
+                        probe_res = self._tune_probe(query_store, sids)
+            if probe_res is None and self._probe_path == "host":
+                probe_res = self.index.probe_stream_host(query_store,
+                                                         sids)
+        if probe_res is None:  # the device path, or no host probe
+            with _phase("probe"), _DEVICE_LOCK:
+                probe_res = self.index.probe_stream_flat(query_store,
+                                                         sids)
         g_hit, row_hit, fwd_hit, g_rep, starts, _ = probe_res
         # per-query filtered (repetitive-kmer) positions: g_rep is
         # ascending in stream order, so per-query slices stay sorted

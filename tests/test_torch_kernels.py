@@ -9,7 +9,10 @@ Tests marked `gpu` skip without a CUDA device.  K1 and K5 must match
 bit for bit; K2's rows exactly on their live region (rows below
 cand_len, columns up to blen: the rest of its output is undefined), the
 four raw score outputs of K2+K3 bit for bit, chars exactly; K4's
-outputs must equal K2+K3's and the plain version's bit for bit."""
+outputs must equal K2+K3's and the plain version's bit for bit.  The
+device index paths (`ops.kmers.stream_probe_packed`,
+`solid_select_device`: plain tensor code, no hand-written kernel) must
+give on the card what they give on the CPU, bit for bit."""
 
 import os
 
@@ -19,7 +22,12 @@ import torch
 
 import flye_tpu_torch.ops.align as TA
 import flye_tpu_torch.ops.polish as TP
+from flye_tpu_torch.index import KmerIndex
+from flye_tpu_torch.io import SequenceStore
 from flye_tpu_torch.ops import _cuda
+from flye_tpu_torch.ops.kmers import (solid_select_device,
+                                      stream_probe_packed,
+                                      stream_select_packed)
 from flye_tpu_torch.ops.chain import _chain_dp_scan, chain_dp
 from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
 from flye_tpu_torch.utils.simulate import K1_ROW_KINDS, k1_row_kinds
@@ -453,3 +461,68 @@ def test_levenshtein_device_tensor_never_runs_plain(monkeypatch):
                           dtype=torch.uint8 if i % 2 == 0
                           else torch.int32, device="meta")
               for i in range(4)])
+
+
+def _raw_index(k=17):
+    """Simulated raw reads (100 kb genome, 20x, 8% error, with a read
+    shorter than k and an empty one) and their solid-k-mer index, built
+    on the host."""
+    from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
+    genome = random_genome(100_000, seed=5, repeat_spec=[(2000, 3)])
+    store = SequenceStore()
+    for name, codes in simulate_reads(genome, coverage=20, mean_length=8000,
+                                      error_rate=0.08, seed=6):
+        store.add(name, codes)
+    store.add("short", genome[:k - 1])
+    store.add("empty", genome[:0])
+    idx = KmerIndex.build_solid(store, k, select_rate=0.1, tandem_freq=100,
+                                repeat_kmer_rate=3)
+    return store, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("narrow", [True, False])
+def test_stream_probe_on_card_matches_cpu(cuda_device, narrow):
+    """The raw path's probe batches ([512 | 64, 16384], k = 17) over
+    both strands of the reads, card against CPU."""
+    store, idx = _raw_index()
+    starts, n_total, stream = idx._read_stream(store, store.ids(True))
+    starts_p = idx._padded_starts(starts, n_total)
+    up, rp = idx._device_tables()
+    step = idx._STREAM_W - (idx.k - 1)
+    seen = 0
+    for r0, chunk in list(idx._stream_chunks(stream, n_total, 1))[-3:]:
+        args = [torch.from_numpy(x) for x in (chunk, starts_p)]
+        kw = dict(k=idx.k, step=step, narrow=narrow)
+        cpu = stream_probe_packed(args[0], args[1], r0, n_total, up, rp,
+                                  idx.num_kmers - 1, **kw)
+        card = stream_probe_packed(
+            args[0].to(cuda_device), args[1].to(cuda_device), r0, n_total,
+            up.to(cuda_device), rp.to(cuda_device), idx.num_kmers - 1,
+            **kw)
+        assert torch.equal(card.cpu(), cpu)
+        seen |= int(((cpu >> (28 if narrow else 32)) & 3).max())
+    assert seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sample", [1, 2])
+def test_solid_select_on_card_matches_cpu(cuda_device, sample):
+    store, idx = _raw_index()
+    starts, n_total, stream = idx._read_stream(store, store.ids())
+    starts_p = torch.from_numpy(idx._padded_starts(starts, n_total))
+    W, step = idx._STREAM_W, idx._STREAM_W - (idx.k - 1)
+    packed = torch.cat([
+        stream_select_packed(torch.from_numpy(chunk), starts_p, r0,
+                             n_total, k=idx.k, w=1, sample=sample,
+                             step=step).view(-1)
+        for r0, chunk in idx._stream_chunks(stream, n_total, 1)])
+    idx90 = torch.from_numpy(idx._p90_ranks(np.diff(starts), idx.k, sample,
+                                            len(starts_p)))
+    kw = dict(k=idx.k, W=W, step=step, tandem_freq=100, global_min=2)
+    pk, pg, n = solid_select_device(packed, starts_p, idx90, 0.1, **kw)
+    cpk, cpg, cn = solid_select_device(
+        packed.to(cuda_device), starts_p.to(cuda_device),
+        idx90.to(cuda_device), 0.1, **kw)
+    assert 0 < n == cn
+    assert torch.equal(cpk.cpu(), pk) and torch.equal(cpg.cpu(), pg)
