@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
                           [--phases chain,polish,lev,main,fused,hifi,
-                                    climb,k1paths,k23paths,k4paths,index]
+                                    climb,k1paths,k23paths,k4paths,index,
+                                    optstages]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
@@ -95,6 +96,30 @@ prints no result):
      the child): stage and step walls, the engine's probe phase, K1's
      launches and the device peak side by side.  Its launches are the
      `raw-device-index` path of the kernels line.
+ 13. (`optstages`, run after 5) Trestle and short-plasmid recovery:
+     (a) Trestle's three device-backed strategies (`_position_partition`,
+     `_divergence_vote`, `_iterative_partition`) called directly on the
+     JAX package's test graphs (`trestle_fixtures`, built here: the
+     card's machine has no JAX), on the card and on the CPU: each must
+     pair in1->out1 and in2->out2 on distinct copies (`_divergence_vote`
+     on the widened variant) and refuse identical copies, K2 and K3 must
+     launch in each strategy and K5 in the last two, and each
+     strategy's first launch of each kernel and shape (its climbs
+     captured anew) is held against the plain version bit for bit
+     (`LaunchCheck`); each call's
+     launches and any card-vs-CPU difference are printed; (b) phase 5's
+     1 Mb layout with a 12 kb two-copy repeat (1% diverged) and a 3 kb
+     plasmid read circular at 5x, `--pacbio-raw ... --trestle
+     --plasmids` on the card with the census: 9 stages, K2 and K3 in
+     the plasmids job, at least one plasmid, and floors (OPT_*) on the
+     assembly's identity and contig count and on the plasmids' count
+     and identity; the trestle and plasmids jobs' first launch of each
+     kernel and shape (their climbs captured anew) held against the
+     plain versions bit for bit, and phase 8's K1 check on the run's
+     captures; stage walls, Trestle's and the plasmid stage's log
+     lines, launches per job and the device peak printed.  Its
+     launches are the `trestle-fixtures` and `optstages` paths of the
+     kernels line.
 Phases 5 and 7 climb device-resident (CUDA-graph replays) and print a
 census of their runs: every kernel's eager launches and summed device
 time by shape (a pair of CUDA events right around each launcher call,
@@ -107,10 +132,11 @@ bound: the larger of the bytes it must move over the card's memory rate
 and the operations its inputs need over the card's peak rate for their
 type.  It prints the card's name and power limit, a `{"kernels": [...]}`
 line with each kernel's launches on both paths, and last `{"ok": true,
-"device": {...}}`.  `--main-device cpu` runs phase 5 on the CPU instead
-(how the floors were measured); `--phases` runs the build and the named
+"device": {...}}`.  `--main-device cpu` runs phase 5 and phase 13 (b)
+on the CPU instead (how their floors were measured; (a) is skipped);
+`--phases` runs the build and the named
 phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7, k1paths
-8, k23paths 9, k4paths 10, climb 11, index 12).
+8, k23paths 9, k4paths 10, climb 11, index 12, optstages 13).
 """
 
 import argparse
@@ -1659,19 +1685,22 @@ def hifi_default_route(out, reads_path, glen):
 
 # ---------------------------------------------------------------- phase 8
 
-def phase_k1_paths(report):
+def phase_k1_paths(report, tags=None):
     """K1 on the inputs the paths handed it (CAPTURES), per run and
-    (T, M, L): checked and timed as in phase 2."""
+    (T, M, L): checked and timed as in phase 2.  `tags`: only these
+    runs' captures (default every run's)."""
     import torch
     from flye_tpu_torch.ops.chain import chain_dp
-    if not CAPTURES:
+    caps = {key: cap for key, cap in CAPTURES.items()
+            if tags is None or key[0] in tags}
+    if not caps:
         raise AssertionError("no K1 launch was captured: run phase 5 or 7 "
                              "first")
     dev = torch.device("cuda")
     per_shape = report["chain_dp"]["per_shape"] if "chain_dp" in report \
         else []
     done = {}   # (T, M, L) -> [(tag, inputs)] checked so far
-    for (tag, T, M, L), cap in sorted(CAPTURES.items(),
+    for (tag, T, M, L), cap in sorted(caps.items(),
                                       key=lambda kv: kv[0][1:]):
         inputs = tuple(cap[a] for a in ("cur", "ext", "nvalid", "k",
                                         "max_jump"))
@@ -2377,8 +2406,460 @@ def phase_index(report):
     return index_runs(out, reads, glen)
 
 
+# ---------------------------------------------------------------- phase 13
+
+# phase 13 (b), from the port's `--device cpu` run of the same reads on
+# an H100 machine's CPU (`--main-device cpu`): assembly.fasta at window
+# identity 0.9999521410579345 in 2 contigs, 1 plasmid at window identity
+# 0.9874999999999999 against the plasmid; each identity minus 1e-3; see
+# PERF.md.
+OPT_ASSEMBLY_IDENTITY_FLOOR = 0.9989521410579345
+OPT_ASSEMBLY_CONTIGS = 2
+OPT_PLASMIDS = 1
+OPT_PLASMID_IDENTITY_FLOOR = 0.9864999999999999
+# the Trestle strategies phase 13 (a) drives on the card, and the
+# kernels each must launch there
+OPT_STRATEGIES = {
+    "_position_partition": ("polish_backward", "polish_forward_score"),
+    "_divergence_vote": ("polish_backward", "polish_forward_score",
+                         "levenshtein"),
+    "_iterative_partition": ("polish_backward", "polish_forward_score",
+                             "levenshtein"),
+}
+# per strategy, the fixture of (a) on which it must pair in1->out1 and
+# in2->out2 (on each "identical" fixture every strategy must refuse)
+OPT_PAIRS_ON = {"_position_partition": "distinct",
+                "_divergence_vote": "widened",
+                "_iterative_partition": "distinct"}
+# the jobs of phase 13 (b) whose launches it holds against the plain
+# versions
+OPT_CHECK_JOBS = ("trestle", "plasmids")
+OPT_LOG_KEYS = ("Trestle", "Unmapped reads", "Circular reads",
+                "Recovered")
+TRESTLE_L = 1500
+
+
+class LaunchCheck:
+    """The inputs of the first launch of each kernel and shape made
+    while `on`, held against the plain versions by `check` afterwards.
+
+    Wraps the wrappers of K1, K3 and K5 (CENSUS_WRAPPERS; a census
+    entered later wraps these wrappers in turn) and copies a launch's
+    inputs on the card, on the launch's stream, before it runs: K1's
+    (cur, ext, nvalid), K3's (cand, clen, branches, blen, bmask, subs),
+    from which `check_k23` reruns K2 and holds its rows too, and K5's
+    (a, alen, b, blen).  Launches inside a CUDA-graph capture are their
+    graph's, not this one's."""
+
+    TENSORS = {"chain_dp": 3, "polish_forward_score": 6, "levenshtein": 4}
+
+    def __init__(self, on=True):
+        self.on = on
+        self.kept = {}     # (kernel, shape) -> (inputs, scalars)
+        self.saved = []
+
+    def __enter__(self):
+        import importlib
+        for name, mod, attr in CENSUS_WRAPPERS:
+            if name in self.TENSORS:
+                module = importlib.import_module(f"flye_tpu_torch.ops.{mod}")
+                fn = getattr(module, attr)
+                self.saved.append((module, attr, fn))
+                setattr(module, attr, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+        self.saved = []
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def launch(*args):
+            if self.on and not torch.cuda.is_current_stream_capturing():
+                key = (name, launch_inputs(name, args)[0])
+                if key not in self.kept:
+                    n = self.TENSORS[name]
+                    self.kept[key] = ([a.clone() for a in args[:n]],
+                                      args[n:])
+            return fn(*args)
+        return launch
+
+    def kernels(self):
+        return {name for name, _ in self.kept}
+
+    def check(self, tag):
+        """Raises unless each kept launch's kernel equals its plain
+        version bit for bit; prints one line per launch."""
+        import torch
+        from flye_tpu_torch.ops.align import (_edit_distance_plain,
+                                              edit_distance_batch)
+        for (name, shape), (args, scalars) in sorted(self.kept.items()):
+            where = f"{tag} {name} {shape_text(name, shape)}"
+            if name == "chain_dp":
+                _, plain_ms = k1_check(where, args, *scalars)
+            elif name == "polish_forward_score":
+                Cb, S, R, _ = shape
+                chunk = max(1, (1 << 28) // ((Cb + 1) * R * (S + 1)))
+                plain_ms = check_k23(where, args, chunk)[-1]
+            else:
+                d_k = edit_distance_batch(*args)
+                plain_ms = cuda_ms(lambda: _edit_distance_plain(*args), 1)
+                if not torch.equal(d_k, _edit_distance_plain(*args)):
+                    raise AssertionError(f"K5 != plain at {where}")
+            what = "K2+K3" if name == "polish_forward_score" else name
+            print(f"[optstages] {where}: {what} == plain bit for bit "
+                  f"(plain {plain_ms:.1f} ms)", flush=True)
+        self.kept = {}
+        torch.cuda.empty_cache()
+
+
+def trestle_case(copy_a, copy_b, entry_hi=900, exit_lo=700, n_nodes=12):
+    """The JAX package's Trestle test graph (tests/test_trestle_
+    divergence.py `_build_case`; n_nodes=14 is tests/test_trestle_
+    iterative.py's) in the port's classes: entrances in1 (edge 0), in2
+    (2), the repeat (4, copy B's sequence), exits out1 (6), out2 (8),
+    and three rounds of reads: entrance reads [0, entry_hi) of copy A
+    from in1 and of copy B from in2, middle reads [200, 1300) of each,
+    exit reads [exit_lo, L) of copy A to out1 and of copy B to out2.
+    Returns (graph, reads, simple repeat, chains by edge)."""
+    from flye_tpu_torch.io.seqstore import SequenceStore
+    from flye_tpu_torch.overlap.structs import Overlap
+    from flye_tpu_torch.repeat.graph import (EdgeSequence, GraphEdge,
+                                             RepeatGraph)
+    from flye_tpu_torch.repeat.processing import UnbranchingPath
+    from flye_tpu_torch.repeat.read_aligner import EdgeAlignment
+    from flye_tpu_torch.trestle.trestle import SimpleRepeat
+    L = TRESTLE_L
+    store = SequenceStore()
+    pad = np.zeros(60000, np.uint8)
+    pad[:L] = copy_b
+    store.add("asm", pad)
+    g = RepeatGraph(store)
+    n = [g.add_node() for _ in range(n_nodes)]
+
+    def edge(nl, nr, eid, end=9000, cov=30):
+        e = GraphEdge(n[nl], n[nr], eid)
+        e.seq_segments.append(EdgeSequence(0, 60000, 0, end))
+        e.mean_coverage = cov
+        g.add_edge(e)
+        return e
+    in1, _, in2, _ = (edge(0, 2, 0), edge(3, 1, 1), edge(4, 2, 2),
+                      edge(3, 5, 3))
+    rep = edge(2, 6, 4, end=L, cov=60)
+    edge(7, 3, 5, end=L, cov=60)
+    out1, _, out2, _ = (edge(6, 8, 6), edge(9, 7, 7), edge(6, 10, 8),
+                        edge(11, 7, 9))
+    rep.repetitive = True
+    simple = SimpleRepeat(UnbranchingPath(rep.edge_id, [rep]),
+                          [in1, in2], [out1, out2])
+    reads = SequenceStore()
+    chains = []
+
+    def flank(e, rid):
+        return EdgeAlignment(Overlap(rid, -1, 0, 100, 2000, 0, 100,
+                                     e.length(), score=50), e)
+
+    def add_read(copy, lo, hi, entry=None, exit_e=None):
+        rid = int(reads.add(f"r{len(chains)}",
+                            np.ascontiguousarray(copy[lo:hi])))
+        m = hi - lo
+        chain = [flank(entry, rid)] if entry is not None else []
+        chain.append(EdgeAlignment(
+            Overlap(rid, -1, 0, m, m, lo, hi, L, score=m), rep))
+        if exit_e is not None:
+            chain.append(flank(exit_e, rid))
+        chains.append(chain)
+
+    for _ in range(3):
+        add_read(copy_a, 0, entry_hi, entry=in1)
+        add_read(copy_b, 0, entry_hi, entry=in2)
+        add_read(copy_a, 200, 1300)
+        add_read(copy_b, 200, 1300)
+        add_read(copy_a, exit_lo, L, exit_e=out1)
+        add_read(copy_b, exit_lo, L, exit_e=out2)
+    by_edge = {}
+    for chain in chains:
+        for a in chain:
+            by_edge.setdefault(a.edge.edge_id, []).append(chain)
+    return g, reads, simple, by_edge
+
+
+def trestle_fixtures():
+    """Phase 13 (a)'s fixtures: copy A carries a SNP every 60 bp of copy
+    B (`default_rng(5)`); "distinct" and "identical" are `trestle_case`
+    as the JAX tests build it, "widened" and "widened identical" widen
+    the entrance reads to [0, 1100) and the exit reads to [400, L) so
+    that both sides' reads cover the middle window, and "iterative" is
+    tests/test_trestle_iterative.py's fixture (a SNP every 100 bp of
+    `default_rng(11)`'s copy)."""
+    def snp_copies(seed, every):
+        copy_b = np.random.default_rng(seed).integers(
+            0, 4, TRESTLE_L).astype(np.uint8)
+        copy_a = copy_b.copy()
+        copy_a[50::every] = (copy_a[50::every] + 1) % 4
+        return copy_a, copy_b
+    distinct = snp_copies(5, 60)
+    same = (distinct[1], distinct[1])
+    wide = dict(entry_hi=1100, exit_lo=400)
+    return {"distinct": lambda: trestle_case(*distinct),
+            "identical": lambda: trestle_case(*same),
+            "widened": lambda: trestle_case(*distinct, **wide),
+            "widened identical": lambda: trestle_case(*same, **wide),
+            "iterative": lambda: trestle_case(*snp_copies(11, 100),
+                                              n_nodes=14)}
+
+
+def pairing_text(pairing):
+    if pairing is None:
+        return None
+    return tuple((i.edge_id, o.edge_id) for i, o in pairing)
+
+
+def opt_strategies():
+    """Phase 13 (a): each of Trestle's three device-backed strategies
+    called directly on each fixture of `trestle_fixtures`, on the card
+    and then on the CPU (the native climber, K5's plain version).  On
+    the card each must pair in1->out1 and in2->out2 (edges 0->6, 2->8)
+    on its fixture of OPT_PAIRS_ON and refuse (None) on both identical
+    fixtures, and launch the kernels of OPT_STRATEGIES; a card-vs-CPU
+    difference elsewhere is printed.  Returns the card's launches summed
+    over every call."""
+    import torch
+    import flye_tpu_torch.ops.polish as TP
+    import flye_tpu_torch.trestle.trestle as TT
+    from flye_tpu_torch.ops import _cuda
+    from flye_tpu_torch.parallel.runtime import (ParallelContext,
+                                                 init_runtime, set_runtime)
+    fixtures = trestle_fixtures()
+    total = dict.fromkeys(_cuda.LAUNCHES, 0)
+    card, cpu = {}, {}
+    for strategy, must in OPT_STRATEGIES.items():
+        per = dict.fromkeys(_cuda.LAUNCHES, 0)
+        rec = LaunchCheck()
+        # the strategy's climbs captured anew: each of its shapes warms
+        # up with eager launches that `rec` sees
+        TP._CLIMBS.clear()
+        for fx, build in fixtures.items():
+            init_runtime(device="cuda")
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            with rec:
+                card[strategy, fx] = pairing_text(getattr(TT, strategy)(
+                    *build()))
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+            for k, v in _cuda.LAUNCHES.items():
+                per[k] += v
+                total[k] += v
+            set_runtime(ParallelContext("cpu"))
+            cpu[strategy, fx] = pairing_text(getattr(TT, strategy)(
+                *build()))
+            same = "same" if cpu[strategy, fx] == card[strategy, fx] \
+                else "DIFFERS from the CPU's " + str(cpu[strategy, fx])
+            print(f"[optstages] {strategy} on {fx}: card "
+                  f"{card[strategy, fx]} ({same}), {ms:.1f} ms, launches "
+                  f"{launches}", flush=True)
+        missing = [k for k in must if per[k] == 0]
+        if missing:
+            raise AssertionError(f"{strategy} launched none of {missing} "
+                                 f"on the card")
+        unchecked = {"polish_backward": "polish_forward_score"}
+        unchecked = {unchecked.get(k, k) for k in must} - rec.kernels()
+        if unchecked:
+            raise AssertionError(f"{strategy}: no launch of {unchecked} "
+                                 f"kept to check")
+        rec.check(strategy)
+    set_runtime(None)
+    want = ((0, 6), (2, 8))
+    for strategy, fx in OPT_PAIRS_ON.items():
+        if card[strategy, fx] is None or set(card[strategy, fx]) != set(
+                want):
+            raise AssertionError(f"{strategy} on {fx}: card pairing "
+                                 f"{card[strategy, fx]}, want {want}")
+    for (strategy, fx), got in card.items():
+        if fx.endswith("identical") and got is not None:
+            raise AssertionError(f"{strategy} bridged identical copies "
+                                 f"({fx}): {got}")
+    differ = sorted(k for k in card if card[k] != cpu[k])
+    print(f"[optstages] strategies: {len(card)} calls, card vs CPU "
+          f"differ in {differ or 'none'}; launches on the card "
+          f"{total}", flush=True)
+    return total
+
+
+class _JobLaunches(logging.Handler):
+    """The launch counts at each ">>> STAGE: <job>" and the log lines
+    of Trestle and the plasmid stage (OPT_LOG_KEYS).  During the jobs
+    of OPT_CHECK_JOBS it turns `rec` (a LaunchCheck) on, and at each
+    one's start empties the climb cache, so that every climb shape of
+    the job warms up with eager launches that `rec` sees."""
+
+    def __init__(self, rec):
+        super().__init__(logging.INFO)
+        self.rec = rec
+        self.marks = []
+        self.lines = []
+
+    def emit(self, record):
+        import flye_tpu_torch.ops.polish as TP
+        from flye_tpu_torch.ops import _cuda
+        msg = record.getMessage()
+        if msg.startswith(">>> STAGE: "):
+            job = msg[len(">>> STAGE: "):]
+            self.marks.append((job, dict(_cuda.LAUNCHES)))
+            self.rec.on = job in OPT_CHECK_JOBS
+            if self.rec.on:
+                TP._CLIMBS.clear()
+        elif msg.startswith(OPT_LOG_KEYS):
+            self.lines.append(msg)
+
+    def per_job(self, end):
+        ends = [m for _, m in self.marks[1:]] + [end]
+        return {name: {k: e[k] - m[k] for k in m if e[k] != m[k]}
+                for (name, m), e in zip(self.marks, ends)}
+
+
+def opt_simulate(tag):
+    """Phase 13 (b)'s inputs in RUN_DIR/<tag>: phase 5's 1 Mb layout
+    with a 12 kb two-copy repeat pasted at 250 kb and 700 kb (the
+    second copy at 1% substitutions, `default_rng(13)`), read at 30x
+    with phase 5's seed and read settings, and a 3 kb plasmid
+    (`random_genome(3000, seed=602)`) read circular at 5x with the same
+    settings.  Returns (genome, plasmid, reads path)."""
+    from flye_tpu_torch.io.fasta import write_fasta
+    from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
+    shutil.rmtree(os.path.join(RUN_DIR, tag), ignore_errors=True)
+    os.makedirs(os.path.join(RUN_DIR, tag))
+    genome = random_genome(1_000_000, seed=11,
+                           repeat_spec=[(5000, 3), (2000, 4)])
+    rng = np.random.default_rng(13)
+    unit = rng.integers(0, 4, 12_000).astype(np.uint8)
+    copy_b = unit.copy()
+    snp = rng.random(len(unit)) < 0.01
+    copy_b[snp] = (copy_b[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+    genome[250_000:262_000] = unit
+    genome[700_000:712_000] = copy_b
+    plasmid = random_genome(3000, seed=602)
+    kw = dict(mean_length=8000, error_rate=0.08, error_mix=(0.2, 0.5, 0.3))
+    reads = simulate_reads(genome, coverage=30, seed=7, **kw)
+    n_chrom = len(reads)
+    reads += [("pl_" + n, c) for n, c in simulate_reads(
+        plasmid, coverage=5, circular=True, seed=6, **kw)]
+    path = os.path.join(RUN_DIR, tag, "reads.fasta")
+    write_fasta(reads, path)
+    print(f"[{tag}] simulated 1 Mb genome with a 12 kb repeat "
+          f"({int(snp.sum())} substitutions in its second copy): "
+          f"{n_chrom} reads; 3 kb plasmid: {len(reads) - n_chrom} reads",
+          flush=True)
+    return genome, plasmid, path
+
+
+def opt_pipeline(device, report):
+    """Phase 13 (b): `--pacbio-raw reads -g 1m --trestle --plasmids` on
+    `device` (with the census on the card): 9 stages, K2 and K3 launched
+    in the plasmids job, at least one plasmid, and on the card the
+    floors OPT_* and each kernel of the trestle and plasmids jobs held
+    against its plain version (`LaunchCheck`, then phase 8's check on
+    the run's K1 captures).  Returns the run's launches."""
+    import torch
+    from flye_tpu_torch.io.fasta import read_seq_file
+    from flye_tpu_torch.ops import _cuda
+    genome, plasmid, reads_path = opt_simulate("opt")
+    out = os.path.join(RUN_DIR, "opt", "out")
+    rec = LaunchCheck(on=False)
+    jobs_log = _JobLaunches(rec)
+    logging.getLogger().addHandler(jobs_log)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    try:
+        with rec:
+            wall, jobs, steps = run_cli(
+                "opt", ["--pacbio-raw", reads_path, "-o", out, "-g", "1m",
+                        "--trestle", "--plasmids", "--device", device],
+                census=device == "cuda")
+    finally:
+        logging.getLogger().removeHandler(jobs_log)
+    launches = dict(_cuda.LAUNCHES)
+    per_job = jobs_log.per_job(launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[opt] stage seconds {jobs}", flush=True)
+    for line in jobs_log.lines:
+        print(f"[opt] log: {line}", flush=True)
+    if not any(line.startswith("Trestle") for line in jobs_log.lines):
+        print("[opt] log: no Trestle line (no simple repeat to analyse)",
+              flush=True)
+    for name in ("trestle", "plasmids"):
+        print(f"[opt] launches in the {name} job: {per_job.get(name)}",
+              flush=True)
+    print(f"[opt] wall {wall:.1f} s to assembly.fasta ({device}), plasmid "
+          f"stage {jobs.get('plasmids')} s, device peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
+    if len(jobs) != 9:
+        raise AssertionError(f"expected 9 stages, ran {list(jobs)}")
+    checked = device == "cuda"
+    if checked:
+        check_launches("plasmids job", collections.defaultdict(
+            int, per_job.get("plasmids", {})),
+            ("polish_backward", "polish_forward_score"))
+        # every kernel the new jobs launched, checked at each shape's
+        # first eager launch there; K1 also at the run's launch with the
+        # most admissible pairs per shape (the census's captures)
+        launched = {"polish_forward_score" if k == "polish_backward" else k
+                    for job in OPT_CHECK_JOBS
+                    for k in per_job.get(job, {})}
+        if launched - rec.kernels():
+            raise AssertionError(f"no launch of {launched - rec.kernels()}"
+                                 f" in {OPT_CHECK_JOBS} kept to check")
+        rec.check("opt " + "+".join(OPT_CHECK_JOBS))
+        phase_k1_paths(report, tags={"opt"})
+    plasmids = read_seq_file(os.path.join(out, "22-plasmids",
+                                          "plasmids.fasta"))
+    if not plasmids:
+        raise AssertionError("no plasmid recovered")
+    ident, n_contigs = identity(
+        "opt", os.path.join(out, "assembly.fasta"), genome,
+        OPT_ASSEMBLY_IDENTITY_FLOOR if checked else None)
+    doubled = np.concatenate([plasmid, plasmid])
+    p_ident = []
+    for name, seq in plasmids:
+        v, n_anch, n_win = window_identity([(name, seq)], doubled, "cuda",
+                                           n_windows=50, win=1000)
+        p_ident.append(v)
+        print(f"[opt] {name}: {len(seq)} bp, window identity {v!r} "
+              f"against the plasmid ({n_anch}/{n_win} windows anchored)",
+              flush=True)
+    if checked:
+        if n_contigs != OPT_ASSEMBLY_CONTIGS:
+            raise AssertionError(f"{n_contigs} contigs in assembly.fasta, "
+                                 f"the CPU run has {OPT_ASSEMBLY_CONTIGS}")
+        if len(plasmids) < OPT_PLASMIDS:
+            raise AssertionError(f"{len(plasmids)} plasmids, the CPU run "
+                                 f"has {OPT_PLASMIDS}")
+        low = [v for v in p_ident if v < OPT_PLASMID_IDENTITY_FLOOR]
+        if low:
+            raise AssertionError(f"plasmid identity {low} below the floor "
+                                 f"{OPT_PLASMID_IDENTITY_FLOOR}")
+    shutil.rmtree(os.path.join(RUN_DIR, "opt"), ignore_errors=True)
+    return launches
+
+
+def phase_optstages(device, report):
+    """Phase 13: Trestle's strategies on the card (`opt_strategies`)
+    and the pipeline with both optional stages (`opt_pipeline`).
+    Returns the launches of (a) and of (b) by path."""
+    out = {}
+    if device == "cuda":
+        out["trestle-fixtures"] = opt_strategies()
+    out["optstages"] = opt_pipeline(device, report)
+    return out
+
+
 PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "climb",
-          "k1paths", "k23paths", "k4paths", "index")
+          "k1paths", "k23paths", "k4paths", "index",
+          "optstages")
 
 
 def main():
@@ -2386,7 +2867,9 @@ def main():
     ap.add_argument("--genome-mb", type=float, default=1.0,
                     help="genome of the raw path (phase 5)")
     ap.add_argument("--main-device", choices=["cuda", "cpu"],
-                    default="cuda", help="device of the raw path")
+                    default="cuda", help="device of the raw path and of "
+                    "phase 13's pipeline run (cpu: how their floors were "
+                    "measured; phase 13 then skips (a))")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (the build always runs)")
@@ -2427,7 +2910,9 @@ def main():
                       ("k1paths", lambda: phase_k1_paths(report)),
                       ("k23paths", lambda: phase_k23_paths(report)),
                       ("k4paths", lambda: phase_k4_paths(report)),
-                      ("index", lambda: phase_index(report))):
+                      ("index", lambda: phase_index(report)),
+                      ("optstages", lambda: phase_optstages(
+                          args.main_device, report))):
         if name in phases:
             t0 = time.perf_counter()
             out = run()
@@ -2437,6 +2922,8 @@ def main():
                 paths.update(out)
             elif name == "index":
                 paths["raw-device-index"] = out
+            elif name == "optstages":
+                paths.update(out)
             print(f"[phase] {name} done in {time.perf_counter() - t0:.1f} s",
                   flush=True)
     shutil.rmtree(RUN_DIR, ignore_errors=True)

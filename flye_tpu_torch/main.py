@@ -6,14 +6,17 @@ Job framework, flye/main.py): the same parser, output layout
 job-granular resume via params.json.  The default raw pipeline is
 ported: configure -> assembly -> consensus -> repeat -> contigger ->
 polishing -> finalize, for every read type, and so is the standalone
-polisher (`--polish-target`).  `--profile` writes a torch.profiler trace
-of the pipeline under OUT_DIR/profile.  The optional stages Trestle
-(`--trestle`) and plasmid recovery (`--plasmids`) and `--shards` above
-1 are not yet ported and are refused up front.
+polisher (`--polish-target`), and so are the optional stages Trestle
+(`--trestle`, between repeat and contigger) and short-plasmid recovery
+(`--plasmids`, between contigger and polishing).  `--profile` writes a
+torch.profiler trace of the pipeline under OUT_DIR/profile.  `--shards`
+above 1 is not yet ported.
 
 Usage:
     python -m flye_tpu_torch.main --pacbio-raw reads.fasta -o out_dir \
         -g 1m --device cuda
+    python -m flye_tpu_torch.main --pacbio-raw reads.fasta -o out_dir \
+        -g 1m --trestle --plasmids --device cuda
     python -m flye_tpu_torch.main --polish-target draft.fasta \
         --pacbio-hifi reads.fasta -o out_dir -i 2 --device cuda
 """
@@ -214,29 +217,75 @@ class JobRepeat(Job):
         disjointigs = SequenceStore.from_file(
             os.path.join(self.ctx.out_dir, "10-consensus",
                          "consensus.fasta"))
-        graph, aligner, _ = analyse_repeats(
+        graph, aligner, inferer = analyse_repeats(
             disjointigs, reads, self.ctx.cfg,
             out_dir=self.ctx.subdir("20-repeat"),
             min_overlap=self.ctx.min_overlap)
-        self.ctx.repeat_state = (graph, aligner)
+        self.ctx.repeat_state = (graph, aligner, inferer)
 
 
 def _load_repeat_dumps(ctx):
-    """Reload (graph, aligner) from the repeat stage's dumps on resume
-    (the JAX package also prefers Trestle's updated graph dump, which
-    the port does not write yet)."""
+    """Reload (graph, aligner) from stage dumps on resume; prefers
+    Trestle's updated graph dump (25-trestle) over the repeat stage's
+    when present, as the JAX package does (the reference's precedence,
+    flye/main.py:375-415)."""
     from flye_tpu_torch.repeat.graph import RepeatGraph
     from flye_tpu_torch.repeat.read_aligner import ReadAligner
     reads = ctx.load_reads()
     disjointigs = SequenceStore.from_file(
         os.path.join(ctx.out_dir, "10-consensus", "consensus.fasta"))
     d = os.path.join(ctx.out_dir, "20-repeat")
-    graph = RepeatGraph.load(disjointigs,
-                             os.path.join(d, "repeat_graph_dump"))
+    graph_dump = os.path.join(ctx.out_dir, "25-trestle",
+                              "repeat_graph_dump")
+    if not os.path.exists(graph_dump):
+        graph_dump = os.path.join(d, "repeat_graph_dump")
+    graph = RepeatGraph.load(disjointigs, graph_dump)
     aligner = ReadAligner.load(
         graph, reads, ctx.cfg, ctx.min_overlap,
         os.path.join(d, "read_alignment_dump"))
     return graph, aligner
+
+
+def _graph_mean_coverage(graph) -> int:
+    """Length-weighted mean edge coverage recomputed from a loaded
+    graph dump (stands in for MultiplicityInferer.mean_coverage on
+    resume; reference estimates it from alignments the same way,
+    multiplicity_inferer.cpp:14-90)."""
+    num = den = 0
+    for edge in graph.edges.values():
+        if edge.mean_coverage > 0 and edge.length() > 0:
+            num += edge.mean_coverage * edge.length()
+            den += edge.length()
+    return max(1, int(num / den)) if den else 1
+
+
+class JobTrestle(Job):
+    """Unbridged-repeat resolution.  File contract mirrors the
+    reference (flye/main.py:375-415): consumes the 20-repeat dumps,
+    writes an updated repeat_graph_dump into its own directory which
+    the contigger then prefers over the 20-repeat one."""
+
+    name = "trestle"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        d = ctx.subdir("25-trestle")
+        self.out_files["graph"] = os.path.join(d, "repeat_graph_dump")
+
+    def run(self):
+        from flye_tpu_torch.trestle import resolve_unbridged_repeats
+        reads = self.ctx.load_reads()
+        state = getattr(self.ctx, "repeat_state", None)
+        if state is None:  # resume: reload from the repeat-stage dumps
+            graph, aligner = _load_repeat_dumps(self.ctx)
+            mean_cov = _graph_mean_coverage(graph)
+            self.ctx.repeat_state = (graph, aligner, None)
+        else:
+            graph, aligner, inferer = state
+            mean_cov = (inferer.mean_coverage if inferer is not None
+                        else _graph_mean_coverage(graph))
+        resolve_unbridged_repeats(graph, reads, aligner, mean_cov)
+        graph.store(self.out_files["graph"])
 
 
 class JobContigger(Job):
@@ -252,9 +301,12 @@ class JobContigger(Job):
     def run(self):
         from flye_tpu_torch.contigger import generate_contigs
         state = getattr(self.ctx, "repeat_state", None)
-        if state is None:  # resume: reload from the repeat stage dumps
-            state = _load_repeat_dumps(self.ctx)
-        graph, aligner = state
+        if state is None:
+            # resume: reload the graph and alignments from the repeat
+            # stage dumps (Trestle's updated graph wins if present)
+            graph, aligner = _load_repeat_dumps(self.ctx)
+        else:
+            graph, aligner, _ = state
         contigs, links = generate_contigs(
             graph, aligner, self.ctx.cfg,
             out_dir=self.ctx.subdir("30-contigger"))
@@ -291,6 +343,40 @@ class JobContigger(Job):
                     links.append((a, b))
         self.ctx.contigs = contigs
         self.ctx.links = links
+
+
+class JobPlasmids(Job):
+    name = "plasmids"
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        self.out_files["plasmids"] = os.path.join(
+            ctx.subdir("22-plasmids"), "plasmids.fasta")
+
+    def run(self):
+        from flye_tpu_torch.plasmids import recover_short_plasmids
+        reads = self.ctx.load_reads()
+        contigs_store = SequenceStore.from_file(
+            os.path.join(self.ctx.out_dir, "30-contigger",
+                         "contigs.fasta"))
+        plasmids = recover_short_plasmids(reads, contigs_store,
+                                          self.ctx.platform)
+        write_fasta(plasmids, self.out_files["plasmids"])
+        # append to the contig set for polishing/finalization
+        self._append(plasmids)
+
+    def _append(self, plasmids):
+        from flye_tpu_torch.contigger.extender import ContigInfo
+        for name, codes in plasmids:
+            self.ctx.contigs.append(ContigInfo(
+                name=name, sequence=codes, length=len(codes),
+                coverage=0, circular=True, repetitive=False,
+                multiplicity=1, alt_group=-1, graph_path="*"))
+
+    def load_state(self):
+        store = SequenceStore.from_file(self.out_files["plasmids"])
+        self._append([(store.name(i), store.get(i))
+                      for i in store.ids()])
 
 
 class JobPolishing(Job):
@@ -398,16 +484,19 @@ class JobFinalize(Job):
                                          "assembly_graph.gv"))
 
 
-# the JAX package's optional stages, refused up front (see main())
-NOT_PORTED_STAGES = ("trestle", "plasmids")
-
-
 def create_job_list(ctx: RunContext) -> List[Job]:
-    """The JAX package's default job list (flye_tpu/main.py
-    create_job_list without the optional Trestle and plasmid stages)."""
-    return [JobConfigure(ctx), JobAssembly(ctx), JobConsensus(ctx),
-            JobRepeat(ctx), JobContigger(ctx), JobPolishing(ctx),
-            JobFinalize(ctx)]
+    """The JAX package's job list (flye_tpu/main.py create_job_list)."""
+    jobs: List[Job] = [JobConfigure(ctx), JobAssembly(ctx),
+                       JobConsensus(ctx), JobRepeat(ctx)]
+    # opt-in like the reference (flye/main.py:456); --no-trestle kept as
+    # a legacy override
+    if ctx.args.trestle and not ctx.args.no_trestle:
+        jobs.append(JobTrestle(ctx))
+    jobs.append(JobContigger(ctx))
+    if ctx.args.plasmids and not ctx.args.meta:
+        jobs.append(JobPlasmids(ctx))
+    jobs.extend([JobPolishing(ctx), JobFinalize(ctx)])
+    return jobs
 
 
 def run_pipeline(args) -> int:
@@ -523,13 +612,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--trestle", action="store_true",
                         help="enable Trestle unbridged-repeat "
                              "resolution (reference: flye --trestle, "
-                             "opt-in since 2.8; not yet ported to "
-                             "flye_tpu_torch)")
+                             "opt-in since 2.8)")
     parser.add_argument("--no-trestle", action="store_true",
                         help=argparse.SUPPRESS)  # legacy opt-out
     parser.add_argument("--plasmids", action="store_true",
                         help="recover short unassembled plasmids "
-                             "(not yet ported to flye_tpu_torch)")
+                             "(skipped with --meta)")
     parser.add_argument("--keep-haplotypes", action="store_true")
     parser.add_argument("--nano-model", choices=["r94", "r7"],
                         default="r94",
@@ -600,13 +688,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     configure_logging(os.path.join(args.out_dir, "flye.log"),
                       debug=args.debug)
-    refused = [f"--{stage}" for stage in NOT_PORTED_STAGES
-               if getattr(args, stage)]
-    if refused:
-        logger.error("%s not yet ported to flye_tpu_torch",
-                     ", ".join(refused))
-        logger.error("Pipeline aborted")
-        return 1
     if args.polish_target:
         try:
             return _run_polisher_only(args)

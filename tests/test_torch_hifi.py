@@ -19,6 +19,7 @@ import flye_tpu_torch.main as torch_main
 from flye_tpu_torch.io.fasta import write_fasta
 from flye_tpu_torch.parallel.runtime import ParallelContext, set_runtime
 from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
+from torch_threads import one_torch_thread  # noqa: F401
 
 # every file flye_tpu.main writes, apart from its log and params.json
 OUTPUTS = ["00-assembly/draft_assembly.fasta",

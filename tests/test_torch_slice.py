@@ -11,6 +11,7 @@ import os
 import shutil
 
 import pytest
+import torch
 
 import flye_tpu.main as jax_main
 import flye_tpu_torch.main as torch_main
@@ -18,6 +19,7 @@ from flye_tpu_torch.io.fasta import write_fasta
 from flye_tpu_torch.parallel.runtime import (ParallelContext, get_runtime,
                                              set_runtime)
 from flye_tpu_torch.utils.simulate import random_genome, simulate_reads
+from torch_threads import one_torch_thread  # noqa: F401
 
 # every file flye_tpu.main writes, apart from its log and params.json
 OUTPUTS = ["00-assembly/draft_assembly.fasta",
@@ -94,19 +96,6 @@ def test_resume_reproduces_assembly(runs, stage):
                 "assembly_graph.gfa"):
         assert filecmp.cmp(runs / "torch" / rel, d / rel,
                            shallow=False), rel
-
-
-@pytest.mark.parametrize("flag", [["--trestle"], ["--plasmids"]])
-def test_unported_options_refused(tmp_path, flag):
-    """Trestle and plasmid recovery are not ported: a run asking for
-    one is refused before any work."""
-    rc = torch_main.main(["--pacbio-raw", str(tmp_path / "none.fa"),
-                          "-o", str(tmp_path / "out"), "--device",
-                          "cpu"] + flag)
-    assert rc == 1
-    with open(tmp_path / "out" / "flye.log") as f:
-        assert f"{flag[0]} not yet ported" in f.read()
-    assert not os.path.exists(tmp_path / "out" / "params.json")
 
 
 def test_polish_target_byte_identical(runs):
