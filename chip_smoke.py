@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
                           [--phases chain,polish,lev,main,fused,hifi,
                                     climb,k1paths,k23paths,k4paths,index,
-                                    optstages]
+                                    optstages,multiproc]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
@@ -48,7 +48,8 @@ prints no result):
      version; a synthetic hill climb with FLYE_TPU_FUSED=1 converges to
      the plain climb's candidates;
   7. the HiFi path with FLYE_TPU_FUSED=1: `--pacbio-hifi` on the same
-     1 Mb genome (30x, 15 kb reads, 0.5% error) to `assembly.fasta`,
+     1 Mb genome (HIFI_COVERAGE = 20x, 15 kb reads, 0.5% error) to
+     `assembly.fasta`,
      then the standalone polisher `--polish-target` on that run's
      draft: K1, K4 and K5 must have launched, the assembly must reach
      HIFI_ASSEMBLY_IDENTITY_FLOOR with HIFI_ASSEMBLY_CONTIGS contigs,
@@ -72,15 +73,15 @@ prints no result):
      pair's bound;
  11. (`climb`, run after 7) the device-resident climb against the
      host-stepped one (FLYE_TPU_HOST_POLL=1), each run in a fresh
-     process without the census, so that their walls compare: phase 5's
-     raw run resumed from consensus in each mode (every output file
-     byte-identical between the two and to phase 5's; stage walls and
-     "bubble kernels" steps printed), phase 7's fused HiFi run resumed
+     process without the census: phase 5's raw run resumed from
+     consensus host-stepped through the whole path (every file of phase
+     5's resident run byte-identical; stage walls and "bubble kernels"
+     steps printed beside phase 5's), phase 7's fused HiFi run resumed
      from consensus host-stepped (HIFI_OUTPUTS byte-identical to the
      resident run's), a `--profile` run of the raw consensus stage in
-     each mode (the device's busy share over the stage, the
-     host->device copies' share of "bubble kernels", and per climb
-     graph shape the device ms of K2+K3 against the rest of its
+     each mode (their walls compare: the device's busy share over the
+     stage, the host->device copies' share of "bubble kernels", and per
+     climb graph shape the device ms of K2+K3 against the rest of its
      replays), and each run's device peak memory;
  12. (`index`, run after 5) the device index paths on phase 5's raw
      reads: the raw solid index (k = 17) built host, card, card, host,
@@ -89,12 +90,13 @@ prints no result):
      raw stream, bit-equal card against CPU, timed beside the CPU and
      the bound; `bench.py bench_probe_paths`' measurement with the port
      (`probe_stream_host` against `probe_stream_flat` on one 1,024-read
-     batch) and the builds' walls; then the whole raw path in two fresh
-     processes without the census, the defaults and FLYE_TPU_PROBE=
-     device FLYE_TPU_DEVICE_COUNT=1, every output file byte-identical
-     to phase 5's, the second calling no host index path (counted in
-     the child): stage and step walls, the engine's probe phase, K1's
-     launches and the device peak side by side.  Its launches are the
+     batch) and the builds' walls; then the whole raw path in a fresh
+     process without the census with FLYE_TPU_PROBE=device
+     FLYE_TPU_DEVICE_COUNT=1, every file of phase 5's run (the
+     defaults) byte-identical, calling no host index path and phase 5's
+     run no device one (both counted) and launching K1, K2, K3 and K5:
+     stage and step walls, the engine's probe phase, K1's launches and
+     the device peak beside phase 5's.  Its launches are the
      `raw-device-index` path of the kernels line.
  13. (`optstages`, run after 5) Trestle and short-plasmid recovery:
      (a) Trestle's three device-backed strategies (`_position_partition`,
@@ -120,6 +122,26 @@ prints no result):
      lines, launches per job and the device peak printed.  Its
      launches are the `trestle-fixtures` and `optstages` paths of the
      kernels line.
+ 14. (`multiproc`, run after 5; selecting it alone runs 5 first) the
+     multi-process plane on one host: phase 5's raw path in two fresh
+     processes of the CLI (`--child`, RANK 0 and 1 of WORLD_SIZE 2,
+     `--device cuda`, one output directory, both sharing the card; both
+     killed after MULTIPROC_TIMEOUT_S), each holding the first eager
+     launch of each kernel and shape of its run against the plain
+     versions bit for bit (`LaunchCheck`; every kernel it launched
+     among them): both must exit 0, the worker
+     must write its ava shard (`ava_shard_1.npz`), the task bus must
+     submit and collect at least one `map` and one `polish` task (every
+     task run once, on either process), the worker must launch no
+     polish kernel (it climbs on the native CPU climber),
+     `draft_assembly.fasta` must equal phase 5's byte for byte and
+     `assembly.fasta` must meet phase 5's floors (the coordinator's
+     device climb and the worker's CPU climber may reach different
+     optima of equal score on ties, so its bytes are reported, not
+     held).  Printed: the wall and step walls beside phase 5's, the
+     tasks each process ran by stage, each process's launches and
+     device peak.  Its launches, both processes summed, are the
+     `multiproc` path of the kernels line.
 Phases 5 and 7 climb device-resident (CUDA-graph replays) and print a
 census of their runs: every kernel's eager launches and summed device
 time by shape (a pair of CUDA events right around each launcher call,
@@ -136,7 +158,8 @@ line with each kernel's launches on both paths, and last `{"ok": true,
 on the CPU instead (how their floors were measured; (a) is skipped);
 `--phases` runs the build and the named
 phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7, k1paths
-8, k23paths 9, k4paths 10, climb 11, index 12, optstages 13).
+8, k23paths 9, k4paths 10, climb 11, index 12, optstages 13, multiproc
+14).
 """
 
 import argparse
@@ -146,9 +169,11 @@ import contextlib
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -165,15 +190,21 @@ IDENTITY_FLOOR = 0.998959798994975
 # contig count; see PERF.md.  Checked at 1 Mb only.
 ASSEMBLY_IDENTITY_FLOOR = 0.9989598997493735
 ASSEMBLY_CONTIGS = 1
-# the HiFi path (phase 7, 1 Mb): `--hifi-plain` on an H100, every
-# kernel replaced by its plain version on the card (in place of a
-# `--device cpu` run, which would not fit one chip call: the plain
-# versions on the card alone took 539 s for this phase), wrote the same
-# files byte for byte as the kernels' run: assembly.fasta at window
-# identity 1.0, minus 1e-3, in 2 contigs (the 999,974 bp circular genome
-# and a 4,978 bp repeat contig); see PERF.md.
+# the HiFi path (phase 7, 1 Mb, HIFI_COVERAGE): `--hifi-plain` on an
+# H100, every kernel replaced by its plain version on the card and the
+# climb host-stepped (in place of a `--device cpu` run, far too slow
+# for the script's time limit: the plain versions on the card alone
+# took 352 s for this phase), wrote assembly.fasta at window identity
+# 1.0, minus 1e-3, in 1 contig of 999,998 bp, as the kernels' run; see
+# PERF.md.
+# (At 30x the same reference gave 2 contigs: the genome and a 4,978 bp
+# repeat contig.)
 HIFI_ASSEMBLY_IDENTITY_FLOOR = 0.999
-HIFI_ASSEMBLY_CONTIGS = 2
+HIFI_ASSEMBLY_CONTIGS = 1
+# the HiFi path's read coverage (30x until the multi-process phase was
+# added: the HiFi assembly stage's host work then took 199.6 s of a
+# 1,282.7 s run on a slower host, so the path was cut to 20x)
+HIFI_COVERAGE = 20
 
 KERNELS = {
     "chain_dp": ("flye_tpu_torch/csrc/chain_dp.cu",
@@ -309,13 +340,15 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps calls, after one warm-up.  A
-    sleep kernel queued ahead of the first event (~1 ms a call) keeps the
-    card busy while the host queues the calls, so that a short kernel is
-    timed on the device and not at the host's launch rate."""
+def cuda_ms(fn, reps, warm=True):
+    """Mean device time of fn() over reps calls, after one warm-up
+    (`warm=False`: the caller has just made it).  A sleep kernel queued
+    ahead of the first event (~1 ms a call) keeps the card busy while
+    the host queues the calls, so that a short kernel is timed on the
+    device and not at the host's launch rate."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -792,7 +825,9 @@ def phase_lev(report):
             raise AssertionError(f"K5 edge rows at S={S}: {edge}")
         reps = 20 if S <= 1024 else 3
         ms = cuda_ms(lambda: edit_distance_batch(*args), reps)
-        plain_ms = cuda_ms(lambda: _edit_distance_plain(*args), 1)
+        # the plain run above is the warm-up
+        plain_ms = cuda_ms(lambda: _edit_distance_plain(*args), 1,
+                           warm=False)
         n_bytes, ops, cells = k5_work(B, S, al, bl)
         b_ms, b_by = bound(n_bytes, ops, INT32_OPS_PER_S)
         old_ms, _ = bound(n_bytes, K5_OPS_PER_CELL * cells, INT32_OPS_PER_S)
@@ -898,8 +933,9 @@ def window_identity(contigs, genome, device, n_windows=400, win=2000,
 
 
 class _StageTimes(logging.Handler):
-    """Collects the pipeline's "<step>: done in X s" log lines and the
-    start time of each ">>> STAGE: <job>"."""
+    """Collects the pipeline's "<step>: done in X s" log lines, the task
+    bus's per-process counts ("taskbus process <p>: ...") and the start
+    time of each ">>> STAGE: <job>"."""
 
     def __init__(self):
         super().__init__(logging.INFO)
@@ -908,7 +944,7 @@ class _StageTimes(logging.Handler):
 
     def emit(self, record):
         msg = record.getMessage()
-        if ": done in " in msg:
+        if ": done in " in msg or msg.startswith("taskbus process "):
             self.lines.append(msg)
         elif msg.startswith(">>> STAGE: "):
             self.starts.append((msg[len(">>> STAGE: "):], record.created))
@@ -1359,9 +1395,10 @@ def phase_main(genome_mb, device):
     out = os.path.join(RUN_DIR, "main", "out")
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    wall, jobs, _ = run_cli(
-        "main", ["--pacbio-raw", reads_path, "-o", out, "-g", f"{glen}",
-                 "--device", device])
+    with index_calls() as calls:
+        wall, jobs, steps = run_cli(
+            "main", ["--pacbio-raw", reads_path, "-o", out, "-g", f"{glen}",
+                     "--device", device])
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"[main] stage seconds {jobs}", flush=True)
@@ -1389,6 +1426,10 @@ def phase_main(genome_mb, device):
                              f"the CPU run has {ASSEMBLY_CONTIGS}")
     if device == "cuda":
         KEPT["raw"] = (out, reads_path, glen, peak)   # for phase 11
+        # for phases 12 and 14
+        KEPT["raw_run"] = {"genome": genome, "wall": wall, "jobs": jobs,
+                           "steps": steps, "checked": checked,
+                           "index_calls": calls}
     return launches
 
 
@@ -1549,7 +1590,10 @@ def phase_fused(report):
 def plain_versions():
     """Route every kernel wrapper to its plain version for CUDA tensors
     too: the reference run of `--hifi-plain`, independent of the
-    hand-written kernels."""
+    hand-written kernels.  The climb is host-stepped there
+    (FLYE_TPU_HOST_POLL=1; byte-identical to the resident one, phase
+    11): the resident climb's CUDA graphs of the plain scoring keep
+    their buffers in private pools, which filled the card."""
     import flye_tpu_torch.ops.align as A
     import flye_tpu_torch.ops.chain as C
     import flye_tpu_torch.ops.polish as P
@@ -1561,9 +1605,11 @@ def plain_versions():
              for mod, name, plain in saved]
     for mod, name, _, plain in saved:
         setattr(mod, name, plain)
+    os.environ["FLYE_TPU_HOST_POLL"] = "1"
     try:
         yield
     finally:
+        os.environ.pop("FLYE_TPU_HOST_POLL", None)
         for mod, name, kernel, _ in saved:
             setattr(mod, name, kernel)
 
@@ -1579,7 +1625,7 @@ def phase_hifi(plain=False, keep=None):
     from flye_tpu_torch.ops import _cuda
 
     glen = 1_000_000
-    genome, reads_path = simulate("hifi", glen, coverage=30,
+    genome, reads_path = simulate("hifi", glen, coverage=HIFI_COVERAGE,
                                   mean_length=15000, error_rate=0.005)
     out = os.path.join(RUN_DIR, "hifi", "hifi")
     out_pt = os.path.join(RUN_DIR, "hifi", "hifi_pt")
@@ -1819,55 +1865,116 @@ def phase_k4_paths(report):
 
 # ---------------------------------------------------------------- phase 11
 
+# variables that select a path or a process: a child sees only the ones
+# its caller sets
+CHILD_ENV = ("FLYE_TPU_HOST_POLL", "FLYE_TPU_FUSED", "FLYE_TPU_PROBE",
+             "FLYE_TPU_DEVICE_COUNT", "FLYE_TPU_PARTITIONED", "RANK",
+             "WORLD_SIZE")
+
+
+def child_runs(runs, timeout):
+    """Each (tag, argv, env, check) of `runs`: `flye_tpu_torch.main
+    argv` in a fresh process (this script's `--child`), all started
+    together, without the census and with CHILD_ENV as `env` sets it;
+    with `check`, the child holds its launches against the plain
+    versions (`child_main`).  Every child is killed once `timeout` s
+    have passed.  Their printed lines are printed here.  Raises unless
+    each exits 0.  Returns their reports (`child_main`) in order."""
+    base = {k: v for k, v in os.environ.items() if k not in CHILD_ENV}
+    os.makedirs(RUN_DIR, exist_ok=True)
+    procs = []
+    with contextlib.ExitStack() as files:
+        try:
+            for tag, argv, env, check in runs:
+                # files, not pipes: a child never blocks on its output
+                # while another is waited for
+                so, se = (files.enter_context(tempfile.TemporaryFile(
+                    "w+", dir=RUN_DIR)) for _ in range(2))
+                spec = {"tag": tag, "argv": argv, "check": check}
+                procs.append((tag, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--child",
+                     json.dumps(spec)], env=dict(base, **env), stdout=so,
+                    stderr=se, text=True), so, se))
+            deadline = time.monotonic() + timeout
+            for _, p, _, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for _, p, _, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        reports = []
+        for tag, p, so, se in procs:
+            so.seek(0)
+            se.seek(0)
+            out, err = so.read(), se.read()
+            if p.returncode != 0:
+                raise RuntimeError(f"{tag} run exited with {p.returncode}:"
+                                   f"\n{out[-3000:]}\n{err[-3000:]}")
+            lines = out.strip().splitlines()
+            for line in lines[:-1]:
+                print(line, flush=True)
+            reports.append(json.loads(lines[-1]))
+    return reports
+
+
 def child_run(tag, argv, env):
-    """`flye_tpu_torch.main argv` in a fresh process (this script's
-    `--child`), without the census and with FLYE_TPU_HOST_POLL,
-    FLYE_TPU_FUSED, FLYE_TPU_PROBE and FLYE_TPU_DEVICE_COUNT as `env`
-    sets them; its step lines are printed here.  Raises unless it exits
-    0.  Returns its report: wall s, seconds per stage, the step lines,
-    device peak bytes, launches, the engine's summed probe phase s and
-    the calls of each index path (INDEX_PATHS)."""
-    full = {k: v for k, v in os.environ.items()
-            if k not in ("FLYE_TPU_HOST_POLL", "FLYE_TPU_FUSED",
-                         "FLYE_TPU_PROBE", "FLYE_TPU_DEVICE_COUNT")}
-    full.update(env)
-    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                        json.dumps({"tag": tag, "argv": argv})],
-                       env=full, capture_output=True, text=True, timeout=600)
-    if p.returncode != 0:
-        raise RuntimeError(f"{tag} run exited with {p.returncode}:\n"
-                           f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
-    lines = p.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        print(line, flush=True)
-    return json.loads(lines[-1])
+    """One child of `child_runs`, without the check, killed after 600 s."""
+    return child_runs([(tag, argv, env, False)], 600)[0]
 
 
-def child_main(spec):
-    """The `--child` process: one CLI run without the census; prints
-    its report as the last line."""
-    import torch
-    from flye_tpu_torch.ops import _cuda
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device")
-    sys.path.insert(0, ROOT)
+@contextlib.contextmanager
+def index_calls():
+    """Counts the calls of each index path (INDEX_PATHS) while open:
+    yields {path: calls}."""
     from flye_tpu_torch.index import KmerIndex
-    from flye_tpu_torch.overlap.engine import phase_times
-    spec = json.loads(spec)
     calls = dict.fromkeys(INDEX_PATHS, 0)
+    saved = {name: getattr(KmerIndex, name) for name in INDEX_PATHS}
 
     def counted(name, fn):
         def call(*a, **kw):
             calls[name] += 1
             return fn(*a, **kw)
         return call
-    for name in INDEX_PATHS:
-        setattr(KmerIndex, name, counted(name, getattr(KmerIndex, name)))
+    for name, fn in saved.items():
+        setattr(KmerIndex, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(KmerIndex, name, fn)
+
+
+def child_main(spec):
+    """The `--child` process: one CLI run without the census; with the
+    spec's `check`, under a `LaunchCheck` whose kept launches (each
+    kernel and shape's first eager launch) are held against the plain
+    versions after the run, every launched kernel among them.  Prints
+    its report as the last line: wall s, seconds per stage, the step
+    lines, device peak bytes, the run's launches, the engine's summed
+    probe phase s and the calls of each index path."""
+    import torch
+    from flye_tpu_torch.ops import _cuda
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    sys.path.insert(0, ROOT)
+    from flye_tpu_torch.overlap.engine import phase_times
+    spec = json.loads(spec)
+    rec = LaunchCheck(on=spec["check"], phase=spec["tag"])
     torch.cuda.reset_peak_memory_stats()
-    wall, jobs, steps = run_cli(spec["tag"], spec["argv"], census=False)
+    with index_calls() as calls, rec:
+        wall, jobs, steps = run_cli(spec["tag"], spec["argv"], census=False)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if spec["check"]:
+        launched = {"polish_forward_score" if k == "polish_backward" else k
+                    for k, v in launches.items() if v}
+        if launched - rec.kernels():
+            raise AssertionError(f"{spec['tag']}: no launch of "
+                                 f"{launched - rec.kernels()} kept to check")
+        rec.check("path")
     print(json.dumps({"wall": wall, "jobs": jobs, "steps": steps,
-                      "peak": torch.cuda.max_memory_allocated(),
-                      "launches": dict(_cuda.LAUNCHES),
+                      "peak": peak, "launches": launches,
                       "probe_s": phase_times().get("probe", 0.0),
                       "index_calls": calls}), flush=True)
 
@@ -2029,31 +2136,30 @@ def trace_report(tag, out_dir):
 
 
 def climb_raw(out, reads, glen):
-    """Phase 11 (a): the raw run in `out` resumed from consensus in each
-    mode; every output file byte-identical between the two and to
-    `out`'s.  Returns the two runs' reports."""
-    rep = {}
-    for mode, env in CLIMB_MODES:
-        d = f"{out}_{mode}"
-        resume_copy(out, d)
-        rep[mode] = child_run(f"raw-{mode}", [
-            "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device",
-            "cuda", "--resume-from", "consensus"], env)
-    differ = same_files(f"{out}_host", f"{out}_resident")
+    """Phase 11 (a): the raw run in `out` resumed from consensus
+    host-stepped through the whole path; every file of `out` (phase 5's
+    run, resident) byte-identical.  Returns the run's report."""
+    d = f"{out}_host"
+    resume_copy(out, d)
+    r = child_run("raw-host", [
+        "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device", "cuda",
+        "--resume-from", "consensus"], {"FLYE_TPU_HOST_POLL": "1"})
+    rels = run_files(out)
+    differ = same_files(out, d, rels)
     if differ:
         raise AssertionError(f"raw path resumed from consensus: the "
-                             f"host-stepped and resident climbs differ in "
-                             f"{differ}")
-    rels = run_files(f"{out}_resident")
-    differ = same_files(out, f"{out}_resident", rels)
-    if differ:
-        raise AssertionError(f"the resumed raw runs differ from phase 5's "
-                             f"in {differ}")
+                             f"host-stepped climb differs from phase 5's "
+                             f"resident one in {differ}")
+    shutil.rmtree(d, ignore_errors=True)
     print(f"[climb] raw resumed from consensus: {len(rels)} output files "
-          "byte-identical, host-stepped = resident = phase 5", flush=True)
-    for mode, _ in CLIMB_MODES:
-        print(f"[climb] raw {mode}: {run_text(rep[mode])}", flush=True)
-    return rep
+          "byte-identical, host-stepped = resident (phase 5)", flush=True)
+    print(f"[climb] raw host: {run_text(r)}", flush=True)
+    run5 = KEPT["raw_run"]
+    print(f"[climb] raw resident (phase 5, from configure, with its "
+          f"census): stages {run5['jobs']}, bubble kernels "
+          f"{', '.join(map(str, step_walls(run5, 'polish: bubble kernels')))}"
+          " s", flush=True)
+    return r
 
 
 def run_text(r):
@@ -2087,15 +2193,17 @@ def climb_hifi(h_out, h_reads, h_glen):
 
 def climb_profile(out, reads, glen):
     """Phase 11 (c): `--profile` of the raw consensus stage in each
-    mode, on the copies `climb_raw` left (`trace_report`)."""
+    mode, on copies of phase 5's run (`trace_report`).  Returns the two
+    runs' reports."""
     rep = {}
     for mode, env in CLIMB_MODES:
         d = f"{out}_{mode}"
-        child_run(f"profile-{mode}", [
+        resume_copy(out, d)
+        rep[mode] = child_run(f"profile-{mode}", [
             "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device",
             "cuda", "--resume-from", "consensus", "--stop-after",
             "consensus", "--profile"], env)
-        rep[mode] = trace_report(f"raw {mode}", d)
+        trace_report(f"raw {mode}", d)
         shutil.rmtree(d, ignore_errors=True)
     return rep
 
@@ -2115,13 +2223,14 @@ def phase_climb():
     h_out, h_reads, h_glen, peak7 = KEPT["hifi"]
     raw = climb_raw(out, reads, glen)
     hifi = climb_hifi(h_out, h_reads, h_glen)
-    climb_profile(out, reads, glen)
+    prof = climb_profile(out, reads, glen)
     print(f"[climb] device peak memory: raw path (phase 5, resident, from "
           f"configure) {peak5 / 2**30:.2f} GiB, raw from consensus "
-          f"host-stepped {raw['host']['peak'] / 2**30:.2f} and resident "
-          f"{raw['resident']['peak'] / 2**30:.2f} GiB; HiFi (phase 7, "
-          f"resident, both runs) {peak7 / 2**30:.2f} GiB, host-stepped from "
-          f"consensus {hifi['peak'] / 2**30:.2f} GiB", flush=True)
+          f"host-stepped {raw['peak'] / 2**30:.2f} GiB, its consensus stage "
+          f"profiled host-stepped {prof['host']['peak'] / 2**30:.2f} and "
+          f"resident {prof['resident']['peak'] / 2**30:.2f} GiB; HiFi (phase "
+          f"7, resident, both runs) {peak7 / 2**30:.2f} GiB, host-stepped "
+          f"from consensus {hifi['peak'] / 2**30:.2f} GiB", flush=True)
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2349,47 +2458,50 @@ def step_walls(r, name):
 
 
 def index_runs(out, reads, glen):
-    """Phase 12 (b): the whole raw path in two fresh processes without
-    the census, on phase 5's reads: the defaults (host probe, host
-    counting) and INDEX_ENV (the device probe and selection); every
-    output file byte-identical to phase 5's; the device run must probe
-    and select on the card only.  Returns the device run's launches."""
+    """Phase 12 (b): the whole raw path with INDEX_ENV (the device probe
+    and selection) in a fresh process without the census, on phase 5's
+    reads: every file of phase 5's run byte-identical; it must probe and
+    select on the card only, phase 5's run (the defaults) on the host
+    only, and it must launch K1, K2, K3 and K5.  Returns its launches."""
+    run5 = KEPT["raw_run"]
+    d = f"{out}_device_index"
+    shutil.rmtree(d, ignore_errors=True)
+    r = child_run("raw-device-index", [
+        "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device",
+        "cuda"], INDEX_ENV)
     rels = run_files(out)
-    rep = {}
-    for mode, env in (("defaults", {}), ("device index", INDEX_ENV)):
-        d = f"{out}_{mode.replace(' ', '_')}"
-        shutil.rmtree(d, ignore_errors=True)
-        rep[mode] = child_run(f"raw-{mode.replace(' ', '-')}", [
-            "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device",
-            "cuda"], env)
-        differ = same_files(out, d, rels)
-        if differ:
-            raise AssertionError(f"the raw run with {mode} differs from "
-                                 f"phase 5's in {differ}")
-        shutil.rmtree(d, ignore_errors=True)
-    calls = {m: r["index_calls"] for m, r in rep.items()}
-    dev, dflt = calls["device index"], calls["defaults"]
+    differ = same_files(out, d, rels)
+    if differ:
+        raise AssertionError(f"the raw run with {INDEX_ENV} differs from "
+                             f"phase 5's in {differ}")
+    shutil.rmtree(d, ignore_errors=True)
+    dev, dflt = r["index_calls"], run5["index_calls"]
     if (dev["probe_stream_flat"] == 0 or dev["probe_stream_host"] != 0
             or dev["_solid_select_device"] == 0
             or dev["_solid_select_host"] != 0):
         raise AssertionError(f"the device-index run did not probe and "
                              f"select on the card only: {dev}")
-    if dflt["probe_stream_flat"] != 0 or dflt["_solid_select_device"] != 0:
-        raise AssertionError(f"the defaults run took a device index "
-                             f"path: {dflt}")
-    check_launches("raw device-index", rep["device index"]["launches"],
-                   RAW_PATH_KERNELS, must_not=("polish_fused",))
-    print(f"[index] raw path, defaults and {INDEX_ENV}: {len(rels)} output "
-          "files byte-identical to phase 5's", flush=True)
-    for mode, r in rep.items():
-        print(f"[index] raw {mode}: wall {r['wall']:.1f} s, stages "
-              f"{r['jobs']}, index build {step_walls(r, 'index build')} s, "
-              f"overlap prefetch {step_walls(r, 'overlap prefetch')} s, "
-              f"engine probe phase {r['probe_s']:.3f} s, index calls "
-              f"{r['index_calls']}, K1 launches "
-              f"{r['launches']['chain_dp']}, device peak "
-              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
-    return rep["device index"]["launches"]
+    if (dflt["probe_stream_flat"] != 0 or dflt["_solid_select_device"] != 0
+            or dflt["probe_stream_host"] == 0
+            or dflt["_solid_select_host"] == 0):
+        raise AssertionError(f"phase 5's run (the defaults) did not probe "
+                             f"and select on the host only: {dflt}")
+    check_launches("raw device-index", r["launches"], RAW_PATH_KERNELS,
+                   must_not=("polish_fused",))
+    print(f"[index] raw path with {INDEX_ENV}: {len(rels)} output files "
+          f"byte-identical to phase 5's (the defaults)", flush=True)
+    print(f"[index] raw device index: wall {r['wall']:.1f} s, stages "
+          f"{r['jobs']}, index build {step_walls(r, 'index build')} s, "
+          f"overlap prefetch {step_walls(r, 'overlap prefetch')} s, engine "
+          f"probe phase {r['probe_s']:.3f} s, index calls {dev}, K1 "
+          f"launches {r['launches']['chain_dp']}, device peak "
+          f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    print(f"[index] raw defaults (phase 5, with its census): wall "
+          f"{run5['wall']:.1f} s, stages {run5['jobs']}, index build "
+          f"{step_walls(run5, 'index build')} s, overlap prefetch "
+          f"{step_walls(run5, 'overlap prefetch')} s, index calls {dflt}",
+          flush=True)
+    return r["launches"]
 
 
 def phase_index(report):
@@ -2453,8 +2565,9 @@ class LaunchCheck:
 
     TENSORS = {"chain_dp": 3, "polish_forward_score": 6, "levenshtein": 4}
 
-    def __init__(self, on=True):
+    def __init__(self, on=True, phase="optstages"):
         self.on = on
+        self.phase = phase      # the printed lines' tag
         self.kept = {}     # (kernel, shape) -> (inputs, scalars)
         self.saved = []
 
@@ -2480,9 +2593,13 @@ class LaunchCheck:
             if self.on and not torch.cuda.is_current_stream_capturing():
                 key = (name, launch_inputs(name, args)[0])
                 if key not in self.kept:
+                    # the scalars only: K3's later arguments are K2's
+                    # tables and rows, which `check` recomputes and which
+                    # would hold gigabytes of the card's memory
                     n = self.TENSORS[name]
                     self.kept[key] = ([a.clone() for a in args[:n]],
-                                      args[n:])
+                                      tuple(a for a in args[n:] if not
+                                            isinstance(a, torch.Tensor)))
             return fn(*args)
         return launch
 
@@ -2509,7 +2626,7 @@ class LaunchCheck:
                 if not torch.equal(d_k, _edit_distance_plain(*args)):
                     raise AssertionError(f"K5 != plain at {where}")
             what = "K2+K3" if name == "polish_forward_score" else name
-            print(f"[optstages] {where}: {what} == plain bit for bit "
+            print(f"[{self.phase}] {where}: {what} == plain bit for bit "
                   f"(plain {plain_ms:.1f} ms)", flush=True)
         self.kept = {}
         torch.cuda.empty_cache()
@@ -2857,9 +2974,111 @@ def phase_optstages(device, report):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+MULTIPROC_TIMEOUT_S = 300
+BUS_LINE = re.compile(r"taskbus process \d+: submitted (\{.*?\}), "
+                      r"collected (\{.*?\}), ran (\{.*?\})")
+
+
+def bus_stats(r):
+    """{submitted, collected, ran: {stage: tasks}} from a child report's
+    "taskbus process <p>: ..." line."""
+    import ast
+    m = next(BUS_LINE.match(x) for x in r["steps"]
+             if x.startswith("taskbus process "))
+    return {kind: ast.literal_eval(m.group(i + 1))
+            for i, kind in enumerate(("submitted", "collected", "ran"))}
+
+
+def phase_multiproc():
+    """Phase 14: phase 5's raw path on two processes of one host sharing
+    the card (`child_runs`, each process holding its own launches
+    against the plain versions): the worker's ava shard, the bus's map
+    and polish tasks, the draft byte-identical to phase 5's and the
+    assembly at phase 5's floors.  Returns the launches of both
+    processes' runs, summed."""
+    if "raw_run" not in KEPT:
+        raise AssertionError("phase multiproc needs phase main on cuda")
+    out5, reads, glen, _ = KEPT["raw"]
+    run5 = KEPT["raw_run"]
+    out = os.path.join(RUN_DIR, "main", "out_multiproc")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--pacbio-raw", reads, "-o", out, "-g", f"{glen}", "--device",
+            "cuda"]
+    t0 = time.perf_counter()
+    coord, worker = child_runs(
+        [(f"multiproc-{rank}", argv, {"RANK": str(rank), "WORLD_SIZE": "2"},
+          True) for rank in (0, 1)], MULTIPROC_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if not os.path.exists(os.path.join(out, "00-assembly",
+                                       "ava_shard_1.npz")):
+        raise AssertionError("the worker wrote no ava_shard_1.npz")
+    stats = [bus_stats(coord), bus_stats(worker)]
+    sub, col = stats[0]["submitted"], stats[0]["collected"]
+    for stage in ("map", "polish"):
+        n = sub.get(stage, 0)
+        if n < 1 or col.get(stage, 0) != n:
+            raise AssertionError(f"the bus carried no whole {stage} "
+                                 f"stage: {stats[0]}")
+        ran = sum(s["ran"].get(stage, 0) for s in stats)
+        if ran != n:
+            raise AssertionError(f"{stage}: {n} tasks submitted, {ran} "
+                                 f"run")
+    launches = {k: coord["launches"][k] + worker["launches"][k]
+                for k in KERNELS}
+    check_launches("multiproc", launches, RAW_PATH_KERNELS,
+                   must_not=("polish_fused",))
+    # the worker polishes with the native CPU climber: no climb graph
+    for k in ("polish_backward", "polish_forward_score", "polish_fused"):
+        if worker["launches"][k]:
+            raise AssertionError(f"the worker launched {k}")
+    differ = same_files(out5, out, ["00-assembly/draft_assembly.fasta"])
+    if differ:
+        raise AssertionError("the 2-process draft_assembly.fasta differs "
+                             "from phase 5's")
+    checked = run5["checked"]
+    _, n_contigs = identity("multiproc", os.path.join(out, "assembly.fasta"),
+                            run5["genome"],
+                            ASSEMBLY_IDENTITY_FLOOR if checked else None)
+    if checked and n_contigs != ASSEMBLY_CONTIGS:
+        raise AssertionError(f"{n_contigs} contigs in the 2-process "
+                             f"assembly.fasta, the CPU run has "
+                             f"{ASSEMBLY_CONTIGS}")
+    same = not same_files(out5, out, ["assembly.fasta"])
+    print(f"[multiproc] wall {coord['wall']:.1f} s to assembly.fasta in "
+          f"the coordinator (phase 5, with its census: {run5['wall']:.1f} "
+          f"s; both processes with their start and launch checks "
+          f"{wall:.1f} s); stages: coordinator "
+          f"{coord['jobs']}, worker (its last stage lasts until the bus's "
+          f"DONE) {worker['jobs']}, phase 5 "
+          f"{run5['jobs']}", flush=True)
+    for step in ("index build", "divergence estimation",
+                 "overlap prefetch", "overlap prefetch (host shard)",
+                 "ava shard merge", "polish: read mapping",
+                 "polish: bubble extraction", "polish: bubble kernels"):
+        print(f"[multiproc] {step}: coordinator "
+              f"{step_walls(coord, step)} s, worker "
+              f"{step_walls(worker, step)} s, phase 5 "
+              f"{step_walls(run5, step)} s", flush=True)
+    for rank, (r, st) in enumerate(zip((coord, worker), stats)):
+        print(f"[multiproc] process {rank}: tasks {st}; launches K1 "
+              f"{r['launches']['chain_dp']} K2 "
+              f"{r['launches']['polish_backward']} K3 "
+              f"{r['launches']['polish_forward_score']} K4 "
+              f"{r['launches']['polish_fused']} K5 "
+              f"{r['launches']['levenshtein']}; device peak "
+              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    print(f"[multiproc] draft_assembly.fasta byte-identical to phase 5's; "
+          f"assembly.fasta bytes {'equal' if same else 'differ from'} "
+          f"phase 5's", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "climb",
           "k1paths", "k23paths", "k4paths", "index",
-          "optstages")
+          "optstages", "multiproc")
 
 
 def main():
@@ -2886,6 +3105,8 @@ def main():
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "multiproc" in phases and "main" not in phases:
+        phases.append("main")   # phase 14 compares with phase 5's run
 
     import torch
     if not torch.cuda.is_available():
@@ -2912,7 +3133,8 @@ def main():
                       ("k4paths", lambda: phase_k4_paths(report)),
                       ("index", lambda: phase_index(report)),
                       ("optstages", lambda: phase_optstages(
-                          args.main_device, report))):
+                          args.main_device, report)),
+                      ("multiproc", phase_multiproc)):
         if name in phases:
             t0 = time.perf_counter()
             out = run()
@@ -2924,6 +3146,8 @@ def main():
                 paths["raw-device-index"] = out
             elif name == "optstages":
                 paths.update(out)
+            elif name == "multiproc":
+                paths["multiproc"] = out
             print(f"[phase] {name} done in {time.perf_counter() - t0:.1f} s",
                   flush=True)
     shutil.rmtree(RUN_DIR, ignore_errors=True)

@@ -46,13 +46,19 @@ def build_read_index(store: SequenceStore, cfg: Config) -> KmerIndex:
 
 def assemble_disjointigs(store: SequenceStore, cfg: Config,
                          min_overlap: Optional[int] = None,
-                         genome_size: Optional[int] = None
-                         ) -> List[Tuple[str, np.ndarray]]:
+                         genome_size: Optional[int] = None,
+                         work_dir: Optional[str] = None
+                         ) -> Optional[List[Tuple[str, np.ndarray]]]:
     """Full assemble stage: returns (name, codes) disjointigs.
 
-    Single process; the JAX package's multi-host shard exchange and
-    hash-partitioned index (its process_count > 1 branches) are not yet
-    ported."""
+    Multi-process (process_count > 1): every process builds the same
+    index and computes overlaps for ITS host_partition of the reads;
+    shards are exchanged through `work_dir` on the shared filesystem and
+    the coordinator merges them before the (sequential) extension walk.
+    Worker processes return None after contributing their shard.  The
+    JAX package's hash-partitioned mode (FLYE_TPU_PARTITIONED=1 with
+    more than one process) and its sharded index (`--shards > 1`) are
+    not yet ported."""
     min_overlap = min_overlap or cfg.min_overlap
 
     # maxCurOverlaps economy: bound per-read overlap collection at
@@ -70,10 +76,16 @@ def assemble_disjointigs(store: SequenceStore, cfg: Config,
         logger.debug("Expected read coverage: %d; capping per-read "
                      "overlaps at %d", coverage, max_cur_overlaps)
 
+    import os
+
     from flye_tpu_torch.parallel.runtime import get_runtime
-    if get_runtime().process_count > 1:
+    rt = get_runtime()
+    if (rt.process_count > 1 and
+            os.environ.get("FLYE_TPU_PARTITIONED") == "1"):
         raise NotImplementedError(
-            "multi-process assembly is not yet ported to flye_tpu_torch")
+            "the hash-partitioned multi-process mode "
+            "(FLYE_TPU_PARTITIONED=1) is not yet ported to flye_tpu_torch "
+            "(ROADMAP.md Queue 1 item 4)")
     with stage_timer("index build"):
         index = build_read_index(store, cfg)
 
@@ -117,8 +129,45 @@ def assemble_disjointigs(store: SequenceStore, cfg: Config,
         max_inner_fraction=cfg.max_inner_fraction,
         add_unassembled_reads=bool(cfg.add_unassembled_reads))
 
-    with stage_timer("overlap prefetch"):
-        ovlp_store.prefetch(store.ids(), progress_every=1000)
+    if rt.process_count > 1:
+        from flye_tpu_torch.parallel.distributed import (BarrierAborted,
+                                                         file_barrier,
+                                                         host_partition,
+                                                         is_coordinator)
+        if work_dir is None:
+            raise ValueError("multi-process run needs a shared work_dir "
+                             "for the ava shard exchange")
+        with stage_timer("overlap prefetch (host shard)"):
+            mine = host_partition(store.ids(), rt.process_index,
+                                  rt.process_count)
+            logger.info("host %d/%d: computing overlaps for %d of "
+                        "%d reads", rt.process_index,
+                        rt.process_count, len(mine),
+                        len(store.ids()))
+            ovlp_store.prefetch(mine, progress_every=1000)
+            if not is_coordinator():
+                ovlp_store.dump_shard(os.path.join(
+                    work_dir, f"ava_shard_{rt.process_index}.npz"))
+        try:
+            file_barrier(work_dir, "ava_shards")
+        except BarrierAborted:
+            if is_coordinator():
+                raise
+            logger.info("host %d: coordinator shut down before the ava "
+                        "barrier; dropping shard", rt.process_index)
+            return None
+        if not is_coordinator():
+            logger.info("host %d: ava shard contributed; the "
+                        "coordinator carries the host-plane stages",
+                        rt.process_index)
+            return None
+        with stage_timer("ava shard merge"):
+            for p in range(1, rt.process_count):
+                ovlp_store.load_shard(os.path.join(
+                    work_dir, f"ava_shard_{p}.npz"))
+    else:
+        with stage_timer("overlap prefetch"):
+            ovlp_store.prefetch(store.ids(), progress_every=1000)
     with stage_timer("disjointig extension"):
         extender.assemble_disjointigs()
 

@@ -44,6 +44,20 @@ from flye_tpu_torch.ops.kmers import canonical_kmers, probe_words
 
 logger = logging.getLogger("flye_tpu_torch")
 
+# streams shorter than this count on the native radix counter; longer
+# ones on the flat 4^k table where k allows, else by a numpy argsort
+# (the JAX package's 500 M cut)
+RADIX_COUNT_MAX = 500 * 10**6
+
+
+def _context_broken(e: Exception) -> bool:
+    """Whether `e` is a CUDA error that leaves the context unusable (an
+    illegal address, a failed launch, a device-side assert): torch
+    reports these as "CUDA error: ..." and every later device call fails
+    with them.  Running out of memory does not."""
+    msg = str(e)
+    return "CUDA error" in msg and "out of memory" not in msg
+
 
 def _lookup_device(uniq, q, rmax):
     """Row of each query k-mer in the sorted table (clamped to rmax) and
@@ -209,13 +223,15 @@ class KmerIndex:
                 rt.shard_rows(chunk), starts_dev, r0, n_total,
                 k=k, w=w, sample=sample, step=step)
             rsel_t, cols_t = torch.nonzero(packed & 1, as_tuple=True)
-            # int64 bit patterns of uint64 words: canon < 2^62 keeps
-            # them non-negative, so the host shifts below are exact
+            # int64 bit patterns of uint64 words (canon << 2 | flags):
+            # at k = 31 a canon of 2^61 or more sets the sign bit, so
+            # the k-mer comes out by a logical shift of the uint64 view
             p = packed[rsel_t, cols_t].cpu().numpy()
             rsel, cols = rsel_t.cpu().numpy(), cols_t.cpu().numpy()
             g = (r0 + rsel.astype(np.int64)) * step + cols - (w - 1)
             rid = np.searchsorted(starts, g, side="right") - 1
-            kmers_l.append((p >> 2).astype(np.int64))
+            kmers_l.append((p.view(np.uint64) >> np.uint64(2))
+                           .astype(np.int64))
             seq_l.append(np.asarray([s >> 1 for s in ids],
                                     dtype=np.int32)[rid])
             pos_l.append((g - starts[rid]).astype(np.int32))
@@ -417,9 +433,12 @@ class KmerIndex:
         device_select: count and select on the runtime's device
         (`_solid_select_device`) instead of the host; None reads
         FLYE_TPU_DEVICE_COUNT=1, and the default is the host, as in the
-        JAX package.  Both give the same index.  Unlike the JAX package,
-        a failure of the device selection raises: there is no fallback
-        to host counting."""
+        JAX package.  Both give the same index.  As in the JAX package,
+        a failure of the device selection (e.g. the card's memory at a
+        large read set) is logged and the index is counted on the host;
+        a CUDA error that leaves the context broken (an illegal address,
+        a failed launch) is raised instead, since every later device
+        call would fail with it."""
         import os
         idx = cls(store, k)
         idx.w = 1
@@ -429,25 +448,41 @@ class KmerIndex:
         if device_select is None:
             device_select = os.environ.get(
                 "FLYE_TPU_DEVICE_COUNT", "") == "1"
-        # pass A: global canonical-kmer counts (sampled) and selection
         if device_select:
-            kmers, seq, pos, flip = idx._solid_select_device(
-                ids, select_rate, tandem_freq, global_min_freq, sample)
-        else:
-            kmers, seq, pos, flip = idx._solid_select_host(
-                ids, select_rate, tandem_freq, global_min_freq, sample)
-            if len(kmers) == 0:
-                # the JAX package's host path keeps sample_rate 1.0 here
-                idx._finalize(kmers, seq, pos, flip, global_min_freq,
-                              repeat_kmer_rate)
-                return idx
-        kmers, seq, pos, flip = cls._sort_triples(kmers, seq, pos, flip)
-        idx._finalize(kmers, seq, pos, flip, global_min_freq,
-                      repeat_kmer_rate)
-        total_len = sum(store.length(i) for i in ids)
-        total_entries = int(idx.counts.sum()) if len(idx.counts) else 1
-        idx.sample_rate = total_len / max(1, total_entries)
-        return idx
+            try:
+                kmers, seq, pos, flip = idx._solid_select_device(
+                    ids, select_rate, tandem_freq, global_min_freq,
+                    sample)
+                return idx._finish_solid(kmers, seq, pos, flip,
+                                         global_min_freq,
+                                         repeat_kmer_rate, ids)
+            except Exception as e:
+                if _context_broken(e):
+                    raise
+                logger.warning("device solid-kmer selection failed "
+                               "(%s); falling back to host counting", e)
+        # pass A: global canonical-kmer counts (sampled) and selection
+        kmers, seq, pos, flip = idx._solid_select_host(
+            ids, select_rate, tandem_freq, global_min_freq, sample)
+        if len(kmers) == 0:
+            # the JAX package's host path keeps sample_rate 1.0 here
+            idx._finalize(kmers, seq, pos, flip, global_min_freq,
+                          repeat_kmer_rate)
+            return idx
+        return idx._finish_solid(kmers, seq, pos, flip, global_min_freq,
+                                 repeat_kmer_rate, ids)
+
+    def _finish_solid(self, kmers, seq, pos, flip, global_min_freq,
+                      repeat_kmer_rate, ids) -> "KmerIndex":
+        """Sort and finalize the selected postings; the sample rate is
+        the indexed bases per kept posting."""
+        kmers, seq, pos, flip = self._sort_triples(kmers, seq, pos, flip)
+        self._finalize(kmers, seq, pos, flip, global_min_freq,
+                       repeat_kmer_rate)
+        total_len = sum(self.store.length(i) for i in ids)
+        total_entries = int(self.counts.sum()) if len(self.counts) else 1
+        self.sample_rate = total_len / max(1, total_entries)
+        return self
 
     def _solid_select_host(self, ids, select_rate, tandem_freq,
                            global_min_freq, sample):
@@ -461,7 +496,7 @@ class KmerIndex:
         from flye_tpu_torch import native
         mod = native.get()
         table_bytes = 1 << (2 * self.k)
-        if len(kmers) < 500 * 10**6:
+        if len(kmers) < RADIX_COUNT_MAX:
             # threaded radix-sort exact counting — linear time, ~28
             # bytes/key workspace; beats the numpy argsort at every
             # size (measured 10 M keys: 0.2 s vs 4.0 s) and the flat
@@ -496,9 +531,17 @@ class KmerIndex:
                     int(self.k)),
                 np.uint8).astype(np.int32)
         else:
-            raise NotImplementedError(
-                f"no native k-mer counter for {len(kmers)} k-mers at "
-                f"k={self.k}")
+            # exact counts by a stable argsort: group sizes, repeated
+            # across each group's members and scattered back to stream
+            # order through the sort permutation
+            order = np.argsort(kmers, kind="stable")
+            skmers = kmers[order]
+            starts = np.flatnonzero(
+                np.concatenate([[True], skmers[1:] != skmers[:-1]]))
+            cnt_vals = np.diff(np.concatenate(
+                [starts, [len(skmers)]])).astype(np.int64)
+            freq = np.empty(len(kmers), dtype=np.int64)
+            freq[order] = np.repeat(cnt_vals, cnt_vals)
         return self._select_with_freq(kmers, seq, pos, flip, freq,
                                       select_rate, tandem_freq,
                                       global_min_freq)

@@ -9,8 +9,16 @@ polishing -> finalize, for every read type, and so is the standalone
 polisher (`--polish-target`), and so are the optional stages Trestle
 (`--trestle`, between repeat and contigger) and short-plasmid recovery
 (`--plasmids`, between contigger and polishing).  `--profile` writes a
-torch.profiler trace of the pipeline under OUT_DIR/profile.  `--shards`
-above 1 is not yet ported.
+torch.profiler trace of the pipeline under OUT_DIR/profile.
+
+N processes of one host run one assembly when `RANK` / `WORLD_SIZE` are
+set (`torchrun --standalone --nproc-per-node N -m flye_tpu_torch.main
+...` sets them): every process computes the overlaps of its read
+partition, process 0 (the coordinator) merges the workers' shards and
+runs the later stages, and the workers serve its read-mapping and
+bubble-polishing tasks over a file bus in OUT_DIR/.taskbus until it
+finishes.  `--shards` above 1 and the hash-partitioned mode
+(FLYE_TPU_PARTITIONED=1) are not yet ported.
 
 Usage:
     python -m flye_tpu_torch.main --pacbio-raw reads.fasta -o out_dir \
@@ -24,6 +32,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import logging
 import os
@@ -170,7 +179,10 @@ class JobAssembly(Job):
             reads = filtered
         disjointigs = assemble_disjointigs(
             reads, self.ctx.cfg, self.ctx.min_overlap,
-            self.ctx.genome_size)
+            self.ctx.genome_size,
+            work_dir=self.ctx.subdir("00-assembly"))
+        if disjointigs is None:
+            return  # multi-process worker: shard contributed, done
         if not disjointigs:
             raise PipelineException(
                 "No disjointigs were assembled - please check if the "
@@ -534,17 +546,76 @@ def run_pipeline(args) -> int:
             with record_function(f"stage {jobs[0].name}"):
                 jobs[0].run()
 
-    for i, job in enumerate(jobs):
-        if i < start_from:
-            job.load_state()
-            continue
-        job.save_checkpoint()
-        logger.info(">>> STAGE: %s", job.name)
-        with record_function(f"stage {job.name}"):
-            job.run()
-        if args.stop_after == job.name:
-            logger.info("Stopped after stage '%s'", job.name)
-            return 0
+    from flye_tpu_torch.parallel.runtime import get_runtime
+    rt = get_runtime()
+    coordinator = rt.process_index == 0
+    bus = None
+    if rt.process_count > 1:
+        # multi-process file bus: workers serve map and polish tasks
+        # after contributing their ava shard; the coordinator fans them
+        # out from its stages (the reference's analog is its process
+        # pool over bubbles, flye/polishing/bubbles.py:96)
+        from flye_tpu_torch.parallel.distributed import \
+            set_barrier_abort_file
+        from flye_tpu_torch.parallel.taskbus import TaskBus, set_bus
+        from flye_tpu_torch.polishing.polisher import \
+            register_polish_handlers
+        bus_dir = os.path.join(ctx.out_dir, ".taskbus")
+        if coordinator:
+            if os.path.isdir(bus_dir):
+                shutil.rmtree(bus_dir)  # stale sentinels from a resume
+            # stale barrier sentinels from a crashed prior attempt make
+            # the barrier pass before workers republish their shards;
+            # stale .partition transports would likewise be read as
+            # fresh exchanges
+            for stale in (glob.glob(os.path.join(ctx.out_dir, "*",
+                                                 ".barriers")) +
+                          glob.glob(os.path.join(ctx.out_dir, "*",
+                                                 ".partition"))):
+                shutil.rmtree(stale)
+        bus = TaskBus(bus_dir, rt.process_index)
+        # workers abort barrier waits once the coordinator writes DONE
+        # (e.g. a --stop-after stage the coordinator never enters)
+        set_barrier_abort_file(os.path.join(bus_dir, "DONE"))
+        register_polish_handlers(bus, prefer_native=not coordinator,
+                                 reads_provider=ctx.load_reads)
+        if coordinator:
+            set_bus(bus)
+
+    def _serve_worker():
+        bus.serve()
+        logger.info("worker process %d finished", rt.process_index)
+
+    try:
+        for i, job in enumerate(jobs):
+            if i < start_from:
+                job.load_state()
+                continue
+            if not coordinator and job.name not in ("configure",
+                                                    "assembly"):
+                # worker processes contribute the data-parallel ava
+                # shard, then serve the bus until the coordinator
+                # finishes
+                _serve_worker()
+                return 0
+            if coordinator:  # workers must not race the checkpoint file
+                job.save_checkpoint()
+            logger.info(">>> STAGE: %s", job.name)
+            with record_function(f"stage {job.name}"):
+                job.run()
+            if args.stop_after == job.name:
+                if not coordinator:
+                    _serve_worker()
+                    return 0
+                logger.info("Stopped after stage '%s'", job.name)
+                return 0
+    finally:
+        if bus is not None and coordinator:
+            bus.shutdown()
+            set_bus(None)
+    if not coordinator:
+        _serve_worker()
+        return 0
     logger.info("Final assembly: %s",
                 os.path.join(ctx.out_dir, "assembly.fasta"))
     return 0

@@ -26,6 +26,7 @@ partitioning (repeat graph), reads->edges and reads->contigs mapping.
 from __future__ import annotations
 
 import logging
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -894,3 +895,82 @@ class OverlapStore:
             out.extend(f)
             out.extend(o.complement() for o in f)
         return out
+
+    def dump_shard(self, path: str) -> None:
+        """Serialize this process's overlap-cache partition to one npz
+        (the multi-process ava exchange: each process computes overlaps
+        for its read partition and ships the shard over the shared
+        filesystem — the per-host generalization of the reference's
+        inter-stage file bus, e.g. its alignment dumps,
+        reference: src/repeat_graph/read_aligner.h:32-33).  The keys are
+        the JAX package's."""
+        reads = sorted(self._cached_reads())
+        counts = []
+        cur_id, ext_id = [], []
+        coords = []
+        score, div = [], []
+        aoff = [0]
+        anchors = []
+        for fwd in reads:
+            ovlps = self._fwd_list(fwd)
+            counts.append(len(ovlps))
+            for o in ovlps:
+                cur_id.append(o.cur_id)
+                ext_id.append(o.ext_id)
+                coords.append((o.cur_begin, o.cur_end, o.cur_len,
+                               o.ext_begin, o.ext_end, o.ext_len))
+                score.append(o.score)
+                div.append(o.divergence)
+                km = (o.kmer_matches if o.kmer_matches is not None
+                      else np.zeros((0, 2), np.int32))
+                anchors.append(np.asarray(km, dtype=np.int32))
+                aoff.append(aoff[-1] + len(km))
+        # publish atomically: a reader must never see a half-written
+        # shard (the barrier only proves the writer REACHED the dump)
+        tmp = f"{path}.tmp{os.getpid()}"
+        np.savez_compressed(
+            tmp, reads=np.asarray(reads, np.int64),
+            counts=np.asarray(counts, np.int64),
+            cur_id=np.asarray(cur_id, np.int64),
+            ext_id=np.asarray(ext_id, np.int64),
+            coords=np.asarray(coords, np.int64).reshape(-1, 6),
+            score=np.asarray(score, np.int64),
+            div=np.asarray(div, np.float64),
+            aoff=np.asarray(aoff, np.int64),
+            anchors=(np.concatenate(anchors) if anchors
+                     else np.zeros((0, 2), np.int32)))
+        os.replace(tmp if tmp.endswith(".npz") else tmp + ".npz", path)
+
+    def load_shard(self, path: str) -> None:
+        """Merge a dumped shard into the cache (complement lists are
+        rebuilt, exactly as prefetch builds them)."""
+        z = np.load(path)
+        reads = z["reads"]
+        counts = z["counts"]
+        coords = z["coords"]
+        aoff = z["aoff"]
+        anchors = z["anchors"]
+        # hoist npz members: NpzFile decompresses the whole array on
+        # every [] access, so per-overlap indexing of z[...] would make
+        # the merge quadratic
+        cur_id = z["cur_id"]
+        ext_id = z["ext_id"]
+        score = z["score"]
+        div = z["div"]
+        v = 0
+        for fwd, n in zip(reads, counts):
+            ovlps = []
+            for _ in range(n):
+                ov = Overlap(int(cur_id[v]), int(ext_id[v]),
+                             *(int(x) for x in coords[v]),
+                             score=int(score[v]),
+                             divergence=float(div[v]))
+                km = anchors[aoff[v]:aoff[v + 1]]
+                ov.kmer_matches = km if len(km) else None
+                ovlps.append(ov)
+                v += 1
+            if self._packed is not None:
+                self._packed.add(int(fwd), ovlps)
+            else:
+                self._cache[int(fwd)] = (ovlps,
+                                         [o.complement() for o in ovlps])

@@ -4,8 +4,12 @@ Port of `flye_tpu/polishing/polisher.py` (the reference's polishing
 iteration, flye/polishing/polish.py:51-139 +
 src/polishing/bubble_processor.cpp): the in-memory mapper feeds the
 batched polishing kernels, bucketed by bubble size so thousands of
-windows hill-climb in lockstep.  Single process: the JAX package's
-task-bus fan-out over worker processes is not yet ported.
+windows hill-climb in lockstep.  In a multi-process run the coordinator
+fans read-mapping chunks and packed bubble batches out over the file
+task bus (`parallel/taskbus.py`) to the worker processes, which map on
+their own device and polish with the native CPU climber, and claims
+pending tasks itself while it waits.  Device sharding (`--shards > 1`)
+and the hash-partitioned multi-process mode are not yet ported.
 The consensus stage (reference: flye/polishing/consensus.py) is the same
 machinery — a polishing pass with the draft as candidate ("consensus is
 polishing iteration zero").
@@ -14,6 +18,7 @@ polishing iteration zero").
 from __future__ import annotations
 
 import logging
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -205,8 +210,172 @@ def _run_bucket(items: List[Tuple[Bubble, List[np.ndarray]]],
         run_chunks(retry, 2 * cb, False)
 
 
+# ---- multi-process fan-out over the file bus ----
+
+_task_seq = [0]
+_mapper_cache: Dict[str, ReadMapper] = {}
+
+
+def _load_bus_targets(path: str) -> SequenceStore:
+    z = np.load(path, allow_pickle=False)
+    codes, off = z["codes"], z["off"]
+    targets = SequenceStore()
+    for i in range(len(off) - 1):
+        targets.add(f"t{i}", codes[off[i]:off[i + 1]])
+    return targets
+
+
+def _bus_mapper(path: str, k: int, w: int, min_aln: int) -> ReadMapper:
+    """Per-process single-entry mapper cache keyed by the targets file
+    (every chunk of one mapping phase shares it; a new phase writes a
+    new file and evicts the old mapper)."""
+    mapper = _mapper_cache.get(path)
+    if mapper is None:
+        _mapper_cache.clear()
+        targets = _load_bus_targets(path)
+        mapper = ReadMapper(targets, k=k, w=w, min_aln_length=min_aln)
+        _mapper_cache[path] = mapper
+    return mapper
+
+
+def _map_task(payload, reads_provider):
+    """Bus handler: map one chunk of read ids onto the shared targets.
+
+    The reference parallelizes exactly this across processes
+    (flye/utils/sam_parser.py:123-258 chunked SAM reading;
+    flye/polishing/bubbles.py:96-126).  Every process already holds the
+    full read set, so the payload is just the id partition plus a
+    pointer to the coordinator-written targets file."""
+    from flye_tpu_torch.overlap.packed import encode_overlaps
+    tgt_path = bytes(payload["tgt_path"].tobytes()).decode()
+    mapper = _bus_mapper(tgt_path, int(payload["k"]),
+                         int(payload["w"]), int(payload["min_aln"]))
+    reads = reads_provider()
+    by_t = mapper.map_all(reads, ids=payload["read_ids"].tolist())
+    tids = sorted(by_t)
+    counts = np.asarray([len(by_t[t]) for t in tids], np.int64)
+    flat = [o for t in tids for o in by_t[t]]
+    recs, d16, raw = encode_overlaps(flat)
+    return {"tids": np.asarray(tids, np.int64), "counts": counts,
+            "recs": recs, "d16": d16, "raw": raw}
+
+
+def _map_all_bus(bus, targets: SequenceStore, reads: SequenceStore,
+                 k: int, w: int, min_aln: int,
+                 chunk: int = 4096) -> Dict[int, List]:
+    """Coordinator side of the mapping partition: write the targets
+    once, fan read-id chunks out, merge and deterministically order
+    (the composite sort key makes the result independent of the
+    partition)."""
+    from flye_tpu_torch.mapping.mapper import sort_by_target
+    from flye_tpu_torch.overlap.packed import decode_overlaps
+    codes = [targets.get(t) for t in targets.ids()]
+    off = np.zeros(len(codes) + 1, np.int64)
+    off[1:] = np.cumsum([len(c) for c in codes])
+    tgt_path = os.path.join(bus.root, f"targets_{_task_seq[0]}.npz")
+    _task_seq[0] += 1
+    tmp = tgt_path + f".tmp{os.getpid()}"
+    np.savez(tmp, codes=(np.concatenate(codes) if codes
+                         else np.zeros(0, np.uint8)), off=off)
+    os.replace(tmp if tmp.endswith(".npz") else tmp + ".npz", tgt_path)
+    path_arr = np.frombuffer(tgt_path.encode(), np.uint8)
+    ids = reads.ids()
+    tasks = []
+    for lo in range(0, len(ids), chunk):
+        tid = f"t{_task_seq[0]}"
+        _task_seq[0] += 1
+        bus.submit("map", tid, dict(
+            tgt_path=path_arr, k=np.int64(k), w=np.int64(w),
+            min_aln=np.int64(min_aln),
+            read_ids=np.asarray(ids[lo:lo + chunk], np.int64)))
+        tasks.append(tid)
+    results = bus.collect("map", tasks)
+    by_target: Dict[int, List] = {}
+    for tid in tasks:
+        r = results[tid]
+        flat = decode_overlaps(r["recs"], r["d16"], r["raw"])
+        pos = 0
+        for t, n in zip(r["tids"], r["counts"]):
+            by_target.setdefault(int(t), []).extend(
+                flat[pos:pos + int(n)])
+            pos += int(n)
+    sort_by_target(by_target)
+    try:
+        os.unlink(tgt_path)
+    except OSError:
+        pass
+    return by_target
+
+
+def _polish_task(payload, prefer_native: bool):
+    """Bus handler: polish one packed chunk.  Workers take the threaded
+    native CPU climber (the card, if any, is the coordinator's); the
+    coordinator runs its normal device path (`polish_bubbles`)."""
+    from flye_tpu_torch.ops.polish import _polish_bubbles_native
+    args = (payload["cand"], payload["clen"], payload["branches"],
+            payload["blen"], payload["bmask"].astype(bool),
+            payload["subs"])
+    max_iters = int(payload["max_iters"])
+    if prefer_native:
+        out = _polish_bubbles_native(*args, max_iters)
+    else:
+        out = polish_bubbles(*args, max_iters=max_iters)
+    return {"cand": np.asarray(out[0]), "clen": np.asarray(out[1])}
+
+
+def register_polish_handlers(bus, prefer_native: bool,
+                             reads_provider=None) -> None:
+    bus.register("polish",
+                 lambda p: _polish_task(p, prefer_native=prefer_native))
+    if reads_provider is not None:
+        bus.register("map", lambda p: _map_task(p, reads_provider))
+
+
+def _run_phase_bus(bus, items: Dict[Tuple[int, int, int], List],
+                   subs: np.ndarray) -> None:
+    """Fan a whole phase's buckets out over the task bus: submit every
+    chunk (at most 2,048 bubbles, for work-stealing balance between
+    the coordinator's card and CPU workers), then collect — the
+    coordinator claims and processes pending chunks itself while
+    waiting.  Each chunk climbs to full depth (max_iters = 2 * cb): the
+    JAX package's bus schedule, not `_run_bucket`'s two stages.
+
+    NOTE on determinism: worker chunks run the native CPU climber whose
+    edit schedule differs from the device's block-parallel one; on tie
+    cases the two converge to different (equally scoring) local optima,
+    so a multi-process run with the coordinator on the card is NOT
+    guaranteed byte-identical to a single-process one.  Runs with every
+    process on the CPU (all native) are byte-identical by
+    construction."""
+    tasks = []
+    for (cb, sb, rb), lst in sorted(items.items()):
+        max_b = min(_max_batch(cb, sb, rb), 2048)
+        for lo in range(0, len(lst), max_b):
+            chunk = lst[lo:lo + max_b]
+            B = _quantize_batch(len(chunk), max_b)
+            cand, clen, branches, blen, bmask = _pack_chunk(
+                chunk, cb, sb, rb, B)
+            tid = f"t{_task_seq[0]}"
+            _task_seq[0] += 1
+            bus.submit("polish", tid, dict(
+                cand=cand, clen=clen, branches=branches, blen=blen,
+                bmask=bmask.astype(np.uint8), subs=subs,
+                max_iters=np.int32(2 * cb)))
+            tasks.append((tid, chunk))
+    results = bus.collect("polish", [t for t, _ in tasks])
+    for tid, chunk in tasks:
+        out_c, out_l = results[tid]["cand"], results[tid]["clen"]
+        for i, (b, _) in enumerate(chunk):
+            b.polished = out_c[i, :out_l[i]].copy()
+
+
 def _run_phase(items: Dict[Tuple[int, int, int], List],
                subs: np.ndarray) -> None:
+    from flye_tpu_torch.parallel.taskbus import get_bus
+    bus = get_bus()
+    if bus is not None:
+        _run_phase_bus(bus, items, subs)
+        return
     for (cb, sb, rb), lst in sorted(items.items()):
         _run_bucket(lst, cb, sb, rb, subs)
 
@@ -314,9 +483,16 @@ def polish(drafts: Sequence[Tuple[str, np.ndarray]],
             if not len(targets):
                 break
             with stage_timer("polish: read mapping"):
-                mapper = ReadMapper(targets, k=k, w=w,
-                                    min_aln_length=min_aln)
-                by_target = mapper.map_all(reads)
+                from flye_tpu_torch.parallel.taskbus import get_bus
+                bus = get_bus()
+                mapper = None
+                if bus is not None and "map" in bus.handlers:
+                    by_target = _map_all_bus(bus, targets, reads,
+                                             k, w, min_aln)
+                else:
+                    mapper = ReadMapper(targets, k=k, w=w,
+                                        min_aln_length=min_aln)
+                    by_target = mapper.map_all(reads)
 
             all_bubbles: List[Bubble] = []
             per_target: Dict[int, List[Bubble]] = {}

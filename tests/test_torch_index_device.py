@@ -362,19 +362,88 @@ def test_defaults_stay_on_the_host(stores, monkeypatch):
     assert teng._probe_path == "host"
 
 
-def test_device_select_failure_raises(monkeypatch):
-    """No fallback: a failing device selection raises out of build_solid,
-    whether asked for by argument or by FLYE_TPU_DEVICE_COUNT=1."""
+def test_device_select_failure_raises(monkeypatch, caplog):
+    """A failing device selection, asked for by argument or by
+    FLYE_TPU_DEVICE_COUNT=1, is logged and the index is counted on the
+    host, as in the JAX package: bit-equal to the host-built one."""
     ts = _perturbed_store(SequenceStore)
+    kw = dict(select_rate=0.5, tandem_freq=10)
+    host = KmerIndex.build_solid(ts, 13, device_select=False, **kw)
 
     def fails(*a, **kw):
         raise RuntimeError("device selection failed")
 
     import flye_tpu_torch.ops.kmers as TK
     monkeypatch.setattr(TK, "solid_select_device", fails)
-    with pytest.raises(RuntimeError, match="device selection failed"):
-        KmerIndex.build_solid(ts, 13, select_rate=0.5, tandem_freq=10,
-                              device_select=True)
-    monkeypatch.setenv("FLYE_TPU_DEVICE_COUNT", "1")
-    with pytest.raises(RuntimeError, match="device selection failed"):
-        KmerIndex.build_solid(ts, 13, select_rate=0.5, tandem_freq=10)
+    for env in (None, "1"):
+        caplog.clear()
+        if env is None:
+            idx = KmerIndex.build_solid(ts, 13, device_select=True, **kw)
+        else:
+            monkeypatch.setenv("FLYE_TPU_DEVICE_COUNT", env)
+            idx = KmerIndex.build_solid(ts, 13, **kw)
+        assert any("device solid-kmer selection failed (device selection "
+                   "failed); falling back to host counting" in r.getMessage()
+                   and r.levelno == logging.WARNING
+                   for r in caplog.records)
+        assert host.num_kmers > 0
+        _assert_same_index(host, idx)
+
+
+@pytest.mark.parametrize("msg, falls_back", [
+    ("CUDA out of memory. Tried to allocate 20.00 GiB", True),
+    ("CUDA error: out of memory", True),
+    ("CUDA error: an illegal memory access was encountered", False),
+    ("CUDA error: unspecified launch failure", False)])
+def test_device_select_broken_context_raises(monkeypatch, caplog, msg,
+                                             falls_back):
+    """Running out of the card's memory falls back to host counting; a
+    CUDA error that leaves the context broken is raised, not logged."""
+    ts = _perturbed_store(SequenceStore)
+    kw = dict(select_rate=0.5, tandem_freq=10)
+
+    def fails(*a, **kw):
+        raise RuntimeError(msg)
+
+    import flye_tpu_torch.ops.kmers as TK
+    monkeypatch.setattr(TK, "solid_select_device", fails)
+    if falls_back:
+        idx = KmerIndex.build_solid(ts, 13, device_select=True, **kw)
+        _assert_same_index(KmerIndex.build_solid(ts, 13, device_select=False,
+                                                 **kw), idx)
+        assert any("falling back to host counting" in r.getMessage()
+                   for r in caplog.records)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            KmerIndex.build_solid(ts, 13, device_select=True, **kw)
+
+
+@pytest.mark.parametrize("k", [17, 31])
+def test_solid_sort_fallback_matches_jax_radix(monkeypatch, read_sets, k):
+    """Past RADIX_COUNT_MAX k-mers, where the flat 4^k table does not
+    apply (k = 31; k = 17 below 150 M k-mers), the host selection counts
+    by a stable argsort: with the cut lowered, the frequencies equal
+    `flye_tpu`'s native radix counter's on the same stream and the index
+    equals `flye_tpu`'s."""
+    import flye_tpu.native as jax_native
+    import flye_tpu_torch.index.kmer_index as TKI
+    js, ts = read_sets
+    kw = dict(select_rate=0.1, tandem_freq=10, global_min_freq=2)
+    ref = JaxIndex.build_solid(js, k, **kw)
+    seen = {}
+    select = KmerIndex._select_with_freq
+
+    def spy(self, kmers, seq, pos, flip, freq, *a):
+        seen["kmers"], seen["freq"] = kmers, freq
+        return select(self, kmers, seq, pos, flip, freq, *a)
+
+    monkeypatch.setattr(KmerIndex, "_select_with_freq", spy)
+    monkeypatch.setattr(TKI, "RADIX_COUNT_MAX", 1)
+    out = KmerIndex.build_solid(ts, k, device_select=False, **kw)
+    assert seen["freq"].dtype == np.int64   # the argsort branch's counts
+    radix = np.frombuffer(jax_native.get().count_kmer_freqs_radix(
+        np.ascontiguousarray(seen["kmers"], np.int64), k), np.int32)
+    assert radix.max() > 1
+    np.testing.assert_array_equal(seen["freq"], radix)
+    assert ref.num_kmers > 0
+    _assert_same_index(ref, out)
