@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
                           [--phases chain,polish,lev,main,fused,hifi,
                                     climb,k1paths,k23paths,k4paths,index,
-                                    optstages,multiproc]
+                                    optstages,multiproc,sharded]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
@@ -73,16 +73,18 @@ prints no result):
      pair's bound;
  11. (`climb`, run after 7) the device-resident climb against the
      host-stepped one (FLYE_TPU_HOST_POLL=1), each run in a fresh
-     process without the census: phase 5's raw run resumed from
-     consensus host-stepped through the whole path (every file of phase
-     5's resident run byte-identical; stage walls and "bubble kernels"
-     steps printed beside phase 5's), phase 7's fused HiFi run resumed
-     from consensus host-stepped (HIFI_OUTPUTS byte-identical to the
-     resident run's), a `--profile` run of the raw consensus stage in
-     each mode (their walls compare: the device's busy share over the
-     stage, the host->device copies' share of "bubble kernels", and per
-     climb graph shape the device ms of K2+K3 against the rest of its
-     replays), and each run's device peak memory;
+     process without the census: phase 5's raw run host-stepped (every
+     file of phase 5's resident run byte-identical: the consensus
+     stage's from the host-stepped profile run below, the rest from a
+     run resumed from polishing; stage walls and "bubble kernels" steps
+     printed beside phase 5's), phase 7's fused HiFi run resumed from
+     consensus host-stepped (HIFI_OUTPUTS byte-identical to the
+     resident run's), a `--profile` run of the raw consensus stage
+     (resumed from consensus) in each mode (their walls compare: the
+     device's busy share over the stage, the host->device copies'
+     share of "bubble kernels", and per climb graph shape the device ms
+     of K2+K3 against the rest of its replays), and each run's device
+     peak memory;
  12. (`index`, run after 5) the device index paths on phase 5's raw
      reads: the raw solid index (k = 17) built host, card, card, host,
      every field equal; `stream_probe_packed` on a 512-row and a 64-row
@@ -142,6 +144,31 @@ prints no result):
      tasks each process ran by stage, each process's launches and
      device peak.  Its launches, both processes summed, are the
      `multiproc` path of the kernels line.
+ 15. (`sharded`, run after 5; selecting it alone runs 5 first) the
+     sharded plane on phase 5's reads: (a) with a mesh of 3 shards of
+     the card (`card_mesh`; 3 is not a power of two, where a signed
+     modulo of the hashes would own k-mers wrongly) the solid (raw
+     overlay) and minimizer (k 15, w 5: the mapper's) mesh builds of
+     `ShardedKmerIndex`, each equal field for field to the one-device
+     build laid out shard by shard (and the minimizer one to the host
+     shard build), 0 postings dropped; `sharded_pipeline_step` at 1-4
+     shards bit-identical to each other and to its plain versions on
+     the CPU; the engine's overlaps of 200 reads with the sharded
+     index (the device probe through its row map) equal to the plain
+     index's; shard sizes and build walls printed.  (b) phase 5's raw
+     path in two fresh processes (RANK 0/1 of WORLD_SIZE 2, `--device
+     cuda --debug`, one output directory) with FLYE_TPU_PARTITIONED=1,
+     each on a 2-shard mesh of the card (`local_mesh`) and holding its
+     first eager launch of each kernel and shape against the plain
+     versions bit for bit (`LaunchCheck`): both exit 0, each shard
+     holds 25-75% of the k-mers, the worker writes `ava_shard_1.npz`,
+     `draft_assembly.fasta` equals phase 5's byte for byte and
+     `assembly.fasta` meets phase 5's floors (its bytes reported).
+     Printed: walls, step walls and the "partitioned ..." phases beside
+     phase 5's, the bytes under `.partition`, each process's launches
+     and device peak.  Its launches are the `sharded-units` ((a)) and
+     `partitioned` ((b), both processes summed) paths of the kernels
+     line.
 Phases 5 and 7 climb device-resident (CUDA-graph replays) and print a
 census of their runs: every kernel's eager launches and summed device
 time by shape (a pair of CUDA events right around each launcher call,
@@ -159,7 +186,7 @@ on the CPU instead (how their floors were measured; (a) is skipped);
 `--phases` runs the build and the named
 phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7, k1paths
 8, k23paths 9, k4paths 10, climb 11, index 12, optstages 13, multiproc
-14).
+14, sharded 15).
 """
 
 import argparse
@@ -934,17 +961,19 @@ def window_identity(contigs, genome, device, n_windows=400, win=2000,
 
 class _StageTimes(logging.Handler):
     """Collects the pipeline's "<step>: done in X s" log lines, the task
-    bus's per-process counts ("taskbus process <p>: ...") and the start
-    time of each ">>> STAGE: <job>"."""
+    bus's per-process counts ("taskbus process <p>: ..."), the
+    partitioned mode's lines ("partitioned ...", its phases' walls at
+    debug level) and the start time of each ">>> STAGE: <job>"."""
 
     def __init__(self):
-        super().__init__(logging.INFO)
+        super().__init__(logging.DEBUG)
         self.lines = []
         self.starts = []
 
     def emit(self, record):
         msg = record.getMessage()
-        if ": done in " in msg or msg.startswith("taskbus process "):
+        if (": done in " in msg or msg.startswith("taskbus process ")
+                or msg.startswith("partitioned ")):
             self.lines.append(msg)
         elif msg.startswith(">>> STAGE: "):
             self.starts.append((msg[len(">>> STAGE: "):], record.created))
@@ -1873,11 +1902,12 @@ CHILD_ENV = ("FLYE_TPU_HOST_POLL", "FLYE_TPU_FUSED", "FLYE_TPU_PROBE",
 
 
 def child_runs(runs, timeout):
-    """Each (tag, argv, env, check) of `runs`: `flye_tpu_torch.main
-    argv` in a fresh process (this script's `--child`), all started
-    together, without the census and with CHILD_ENV as `env` sets it;
-    with `check`, the child holds its launches against the plain
-    versions (`child_main`).  Every child is killed once `timeout` s
+    """Each (tag, argv, env, check[, mesh]) of `runs`:
+    `flye_tpu_torch.main argv` in a fresh process (this script's
+    `--child`), all started together, without the census and with
+    CHILD_ENV as `env` sets it; with `check`, the child holds its
+    launches against the plain versions, with `mesh` its runtime gets a
+    mesh of that many shards of its card (`child_main`).  Every child is killed once `timeout` s
     have passed.  Their printed lines are printed here.  Raises unless
     each exits 0.  Returns their reports (`child_main`) in order."""
     base = {k: v for k, v in os.environ.items() if k not in CHILD_ENV}
@@ -1885,12 +1915,13 @@ def child_runs(runs, timeout):
     procs = []
     with contextlib.ExitStack() as files:
         try:
-            for tag, argv, env, check in runs:
+            for tag, argv, env, check, *mesh in runs:
                 # files, not pipes: a child never blocks on its output
                 # while another is waited for
                 so, se = (files.enter_context(tempfile.TemporaryFile(
                     "w+", dir=RUN_DIR)) for _ in range(2))
-                spec = {"tag": tag, "argv": argv, "check": check}
+                spec = {"tag": tag, "argv": argv, "check": check,
+                        "mesh": mesh[0] if mesh else None}
                 procs.append((tag, subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), "--child",
                      json.dumps(spec)], env=dict(base, **env), stdout=so,
@@ -1949,20 +1980,25 @@ def child_main(spec):
     """The `--child` process: one CLI run without the census; with the
     spec's `check`, under a `LaunchCheck` whose kept launches (each
     kernel and shape's first eager launch) are held against the plain
-    versions after the run, every launched kernel among them.  Prints
-    its report as the last line: wall s, seconds per stage, the step
-    lines, device peak bytes, the run's launches, the engine's summed
-    probe phase s and the calls of each index path."""
+    versions after the run, every launched kernel among them; with the
+    spec's `mesh`, on a mesh of that many shards of the card
+    (`local_mesh`).  Prints its report as the last line: wall s, seconds
+    per stage, the step lines, device peak bytes, the run's launches,
+    the engine's summed probe phase s, the calls of each index path and
+    the runtime's devices."""
     import torch
     from flye_tpu_torch.ops import _cuda
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     sys.path.insert(0, ROOT)
     from flye_tpu_torch.overlap.engine import phase_times
+    from flye_tpu_torch.parallel.runtime import get_runtime
     spec = json.loads(spec)
     rec = LaunchCheck(on=spec["check"], phase=spec["tag"])
     torch.cuda.reset_peak_memory_stats()
-    with index_calls() as calls, rec:
+    mesh = (local_mesh(spec["mesh"]) if spec.get("mesh")
+            else contextlib.nullcontext())
+    with index_calls() as calls, rec, mesh:
         wall, jobs, steps = run_cli(spec["tag"], spec["argv"], census=False)
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1976,7 +2012,8 @@ def child_main(spec):
     print(json.dumps({"wall": wall, "jobs": jobs, "steps": steps,
                       "peak": peak, "launches": launches,
                       "probe_s": phase_times().get("probe", 0.0),
-                      "index_calls": calls}), flush=True)
+                      "index_calls": calls,
+                      "n_devices": get_runtime().n_devices}), flush=True)
 
 
 # the index paths a child run counts: the probe's and the solid
@@ -1985,14 +2022,15 @@ INDEX_PATHS = ("probe_stream_host", "probe_stream_flat",
                "_solid_select_host", "_solid_select_device")
 
 
-def resume_copy(src, dst):
+def resume_copy(src, dst, keep=("00-assembly",)):
     """A copy of a finished run's directory holding only what resuming
-    from consensus needs (00-assembly, params.json, flye.log): every
-    file compared afterwards is written by the resumed run."""
+    needs (the stage directories of `keep`, by default what resuming
+    from consensus needs; params.json, flye.log): every other file
+    compared afterwards is written by the resumed run."""
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
     for rel in run_files(dst):
-        if not rel.startswith("00-assembly" + os.sep):
+        if rel.split(os.sep)[0] not in keep:
             os.remove(os.path.join(dst, rel))
 
 
@@ -2135,39 +2173,41 @@ def trace_report(tag, out_dir):
     return rep
 
 
-def climb_raw(out, reads, glen):
-    """Phase 11 (a): the raw run in `out` resumed from consensus
-    host-stepped through the whole path; every file of `out` (phase 5's
-    run, resident) byte-identical.  Returns the run's report."""
+def run_text(r, start="consensus"):
+    bubble = [line.split(": done in ")[1].split(" s")[0]
+              for line in r["steps"] if "bubble kernels" in line]
+    return (f"wall {r['wall']:.1f} s from {start}, stages {r['jobs']}, "
+            f"bubble kernels {', '.join(bubble)} s, device peak "
+            f"{r['peak'] / 2**30:.2f} GiB, launches {r['launches']}")
+
+
+def climb_polishing(out, reads, glen):
+    """Phase 11 (a), second half: phase 5's run resumed from polishing
+    host-stepped (its stages before polishing kept: `climb_profile`
+    holds the host-stepped consensus stage to them); every file of
+    phase 5's resident run byte-identical.  Returns the run's
+    report."""
     d = f"{out}_host"
-    resume_copy(out, d)
+    resume_copy(out, d, keep=("00-assembly", "10-consensus", "20-repeat",
+                              "30-contigger"))
     r = child_run("raw-host", [
         "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device", "cuda",
-        "--resume-from", "consensus"], {"FLYE_TPU_HOST_POLL": "1"})
+        "--resume-from", "polishing"], {"FLYE_TPU_HOST_POLL": "1"})
     rels = run_files(out)
     differ = same_files(out, d, rels)
     if differ:
-        raise AssertionError(f"raw path resumed from consensus: the "
+        raise AssertionError(f"raw path resumed from polishing: the "
                              f"host-stepped climb differs from phase 5's "
                              f"resident one in {differ}")
     shutil.rmtree(d, ignore_errors=True)
-    print(f"[climb] raw resumed from consensus: {len(rels)} output files "
-          "byte-identical, host-stepped = resident (phase 5)", flush=True)
-    print(f"[climb] raw host: {run_text(r)}", flush=True)
     run5 = KEPT["raw_run"]
-    print(f"[climb] raw resident (phase 5, from configure, with its "
-          f"census): stages {run5['jobs']}, bubble kernels "
-          f"{', '.join(map(str, step_walls(run5, 'polish: bubble kernels')))}"
-          " s", flush=True)
+    print(f"[climb] raw resumed from polishing host-stepped: {len(rels)} "
+          f"output files byte-identical to phase 5's (resident), the "
+          f"consensus stage's held by the host-stepped profile run; "
+          f"{run_text(r, 'polishing')}; phase 5's polishing stage "
+          f"{run5['jobs'].get('polishing')} s, bubble kernels "
+          f"{step_walls(run5, 'polish: bubble kernels')[1:]} s", flush=True)
     return r
-
-
-def run_text(r):
-    bubble = [line.split(": done in ")[1].split(" s")[0]
-              for line in r["steps"] if "bubble kernels" in line]
-    return (f"wall {r['wall']:.1f} s from consensus, stages {r['jobs']}, "
-            f"bubble kernels {', '.join(bubble)} s, device peak "
-            f"{r['peak'] / 2**30:.2f} GiB, launches {r['launches']}")
 
 
 def climb_hifi(h_out, h_reads, h_glen):
@@ -2192,8 +2232,10 @@ def climb_hifi(h_out, h_reads, h_glen):
 
 
 def climb_profile(out, reads, glen):
-    """Phase 11 (c): `--profile` of the raw consensus stage in each
-    mode, on copies of phase 5's run (`trace_report`).  Returns the two
+    """Phase 11 (c) and the first half of (a): `--profile` of the raw
+    consensus stage in each mode, on copies of phase 5's run
+    (`trace_report`); the host-stepped run's files of the consensus
+    stage byte-identical to phase 5's (resident).  Returns the two
     runs' reports."""
     rep = {}
     for mode, env in CLIMB_MODES:
@@ -2203,6 +2245,23 @@ def climb_profile(out, reads, glen):
             "--pacbio-raw", reads, "-o", d, "-g", f"{glen}", "--device",
             "cuda", "--resume-from", "consensus", "--stop-after",
             "consensus", "--profile"], env)
+        if mode == "host":
+            rels = [r for r in run_files(out)
+                    if r.startswith("10-consensus" + os.sep)]
+            differ = same_files(out, d, rels)
+            if not rels or differ:
+                raise AssertionError(f"raw consensus stage: the "
+                                     f"host-stepped climb differs from "
+                                     f"phase 5's resident one in "
+                                     f"{differ or 'no file'}")
+            run5 = KEPT["raw_run"]
+            print(f"[climb] raw resumed from consensus host-stepped and "
+                  f"profiled: {len(rels)} files of the consensus stage "
+                  f"byte-identical to phase 5's (resident); "
+                  f"{run_text(rep[mode])}; phase 5's consensus stage "
+                  f"{run5['jobs'].get('consensus')} s, bubble kernels "
+                  f"{step_walls(run5, 'polish: bubble kernels')[:1]} s",
+                  flush=True)
         trace_report(f"raw {mode}", d)
         shutil.rmtree(d, ignore_errors=True)
     return rep
@@ -2214,21 +2273,24 @@ CLIMB_MODES = (("host", {"FLYE_TPU_HOST_POLL": "1"}), ("resident", {}))
 def phase_climb():
     """The device-resident climb against the host-stepped one
     (FLYE_TPU_HOST_POLL=1), each run in a fresh process without the
-    census (`child_run`): (a) `climb_raw` on phase 5's run, (b)
-    `climb_hifi` on phase 7's fused run, (c) `climb_profile`, (d) each
-    run's device peak memory.  Raises on a difference."""
+    census (`child_run`): (a) phase 5's run host-stepped, its
+    consensus stage in the profile run of (c) (`climb_profile`) and
+    the rest resumed from polishing (`climb_polishing`), (b)
+    `climb_hifi` on phase 7's fused run, (d) each run's device peak
+    memory.  Raises on a difference."""
     if "raw" not in KEPT or "hifi" not in KEPT:
         raise AssertionError("phase climb needs phases main and hifi")
     out, reads, glen, peak5 = KEPT["raw"]
     h_out, h_reads, h_glen, peak7 = KEPT["hifi"]
-    raw = climb_raw(out, reads, glen)
-    hifi = climb_hifi(h_out, h_reads, h_glen)
     prof = climb_profile(out, reads, glen)
+    raw = climb_polishing(out, reads, glen)
+    hifi = climb_hifi(h_out, h_reads, h_glen)
     print(f"[climb] device peak memory: raw path (phase 5, resident, from "
-          f"configure) {peak5 / 2**30:.2f} GiB, raw from consensus "
-          f"host-stepped {raw['peak'] / 2**30:.2f} GiB, its consensus stage "
+          f"configure) {peak5 / 2**30:.2f} GiB, its consensus stage "
           f"profiled host-stepped {prof['host']['peak'] / 2**30:.2f} and "
-          f"resident {prof['resident']['peak'] / 2**30:.2f} GiB; HiFi (phase "
+          f"resident {prof['resident']['peak'] / 2**30:.2f} GiB, its "
+          f"polishing stage host-stepped {raw['peak'] / 2**30:.2f} GiB; "
+          f"HiFi (phase "
           f"7, resident, both runs) {peak7 / 2**30:.2f} GiB, host-stepped "
           f"from consensus {hifi['peak'] / 2**30:.2f} GiB", flush=True)
 
@@ -3076,9 +3138,336 @@ def phase_multiproc():
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+
+SHARDED_TIMEOUT_S = 300
+SHARD_LINE = re.compile(r"partitioned index: shard (\d+)/(\d+) holds "
+                        r"(\d+) k-mers / (\d+) postings")
+# the shard counts of the pipeline step's comparison; its rows divide
+# every one
+STEP_SHARDS = (1, 2, 3, 4)
+STEP_ROWS = 24
+UNIT_OVERLAP_READS = 200
+
+
+def card_mesh(n):
+    """A mesh of n shards of the one card (a device may repeat in a
+    mesh; the shards' work then runs one after the other on it)."""
+    from flye_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(n, devices=["cuda:0"] * n)
+
+
+@contextlib.contextmanager
+def local_mesh(n):
+    """While open, the runtime `init_runtime` installs gets a mesh of n
+    shards of its device: on one card the CLI's `--shards` finds one
+    device, and the package has no switch for a repeated one."""
+    import flye_tpu_torch.parallel.runtime as R
+    real = R.init_runtime
+
+    def init_runtime(*a, **kw):
+        rt = real(*a, **kw)
+        rt.mesh = R.make_mesh_local(n, devices=[rt.device] * n)
+        return rt
+    R.init_runtime = init_runtime
+    try:
+        yield
+    finally:
+        R.init_runtime = real
+
+
+def by_shard(plain, n):
+    """The one-device index's rows and postings laid out shard by shard
+    (hash classes of n, each in key order): what a hash-sharded build
+    over n shards must hold."""
+    from flye_tpu_torch.index.sharded import ShardedKmerIndex
+    owner = ShardedKmerIndex.shard_of(plain.uniq_kmers, n)
+    rows = np.argsort(owner, kind="stable")
+    lens = np.diff(plain.offsets)[rows]
+    first = np.repeat(plain.offsets[rows] - (np.cumsum(lens) - lens), lens)
+    post = first + np.arange(int(lens.sum()))
+    out = {name: getattr(plain, name)[rows]
+           for name in ("uniq_kmers", "counts", "repetitive")}
+    out.update({name: getattr(plain, name)[post]
+                for name in ("post_seq", "post_pos", "post_flip")})
+    out["offsets"] = np.concatenate([[0], np.cumsum(lens)])
+    out["shard_row_base"] = np.concatenate(
+        [[0], np.cumsum(np.bincount(owner, minlength=n))])
+    for name in ("repetitive_cutoff", "sample_rate"):
+        out[name] = getattr(plain, name)
+    return out
+
+
+def same_index(tag, idx, want):
+    """Raises unless the index holds `want`'s fields exactly."""
+    for name, ref in want.items():
+        got = getattr(idx, name)
+        if isinstance(ref, float):
+            ok = got == ref
+        else:
+            ok = (np.asarray(got).dtype == np.asarray(ref).dtype and
+                  np.array_equal(np.asarray(got), np.asarray(ref)))
+        if not ok:
+            raise AssertionError(f"{tag}: {name} differs")
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharded_units(store, cfg):
+    """Phase 15 (a) on phase 5's reads, with a mesh of 3 shards of the
+    card (3: not a power of two, where a signed modulo of the hashes
+    would own k-mers wrongly): the solid (raw) and minimizer (mapper)
+    mesh builds against the one-device build laid out by shard and the
+    host shard build, 0 postings dropped; `sharded_pipeline_step` at
+    STEP_SHARDS shards bit-identical to each other and to its plain
+    versions on the CPU; the engine's overlaps of UNIT_OVERLAP_READS
+    reads with the sharded solid index (the device probe and its row
+    map) equal to the plain index's.  Returns its launches."""
+    import torch
+    from flye_tpu_torch.index import KmerIndex
+    from flye_tpu_torch.index.sharded import ShardedKmerIndex
+    from flye_tpu_torch.ops import _cuda
+    from flye_tpu_torch.overlap import OverlapEngine
+    from flye_tpu_torch.parallel.mesh import make_mesh, sharded_pipeline_step
+    from flye_tpu_torch.parallel.runtime import (ParallelContext,
+                                                 get_runtime, set_runtime)
+    n = 3
+    mesh = card_mesh(n)
+    solid = dict(select_rate=cfg.meta_read_top_kmer_rate,
+                 tandem_freq=cfg.meta_read_filter_kmer_freq,
+                 global_min_freq=2, sample=cfg.assemble_kmer_sample,
+                 repeat_kmer_rate=cfg.repeat_kmer_rate)
+    k = cfg.kmer_size
+    _cuda.reset_launches()
+    plain, t_plain = timed(lambda: KmerIndex.build_solid(
+        store, k, device_select=False, **solid))
+    sharded, t_mesh = timed(lambda: ShardedKmerIndex.build_solid_mesh(
+        store, k, mesh, **solid))
+    same_index("solid mesh build", sharded, by_shard(plain, n))
+    rows = {"solid": (sharded, t_plain, t_mesh)}
+    mplain, t_mplain = timed(lambda: KmerIndex.build_minimizers(store, 15,
+                                                                5))
+    mmesh, t_mmesh = timed(lambda: ShardedKmerIndex.build_minimizers_mesh(
+        store, 15, 5, mesh))
+    host = ShardedKmerIndex.build_minimizers(store, 15, 5, n_shards=n)
+    want = by_shard(mplain, n)
+    same_index("minimizer mesh build", mmesh, want)
+    same_index("minimizer host shard build", host, want)
+    rows["minimizer"] = (mmesh, t_mplain, t_mmesh)
+    del mplain, host, want
+    for kind, (idx, tp, tm) in rows.items():
+        if idx.n_dropped:
+            raise AssertionError(f"{kind} mesh build dropped "
+                                 f"{idx.n_dropped} postings")
+        print(f"[sharded] {kind} index over {n} shards of the card: "
+              f"{idx.num_kmers} k-mers, {idx.index_size} postings, shard "
+              f"sizes {np.diff(idx.shard_row_base).tolist()}, dropped "
+              f"{idx.n_dropped}; equal to the one-device build laid out "
+              f"by shard (and the host shard build); build {tm:.2f} s "
+              f"(one device {tp:.2f} s)", flush=True)
+    del rows, mmesh
+
+    # the pipeline step: STEP_ROWS reads' first 16,384 bases, a dense
+    # K1 batch
+    ids = store.ids()[:STEP_ROWS]
+    L = 16384
+    codes = np.zeros((STEP_ROWS, L), np.uint8)
+    lens = np.zeros(STEP_ROWS, np.int32)
+    for r, sid in enumerate(ids):
+        c = store.get(sid)[:L]
+        codes[r, :len(c)] = c
+        lens[r] = len(c)
+    cur, ext, nv = make_matches(STEP_ROWS, 1024, np.random.default_rng(15),
+                                spacing=3.75)
+    args = (codes, lens, cur, ext, nv)
+    outs = {}
+    for m in STEP_SHARDS:
+        fn, _ = sharded_pipeline_step(card_mesh(m))
+        out, t = timed(lambda: fn(*args))
+        outs[m] = [x.cpu() for x in out]
+        print(f"[sharded] pipeline step over {m} shard(s) of the card: "
+              f"{t * 1e3:.1f} ms, {int(outs[m][3])} minimizers", flush=True)
+    fn, _ = sharded_pipeline_step(make_mesh(1, devices=["cpu"]))
+    ref = fn(*args)
+    for m, out in outs.items():
+        for name, a, b in zip(("hist", "score", "parent", "n_sel"), out,
+                              ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"pipeline step over {m} shards: "
+                                     f"{name} differs from the plain "
+                                     f"versions on the CPU")
+    print(f"[sharded] pipeline step at {list(STEP_SHARDS)} shards: hist, "
+          f"score, parent and n_sel bit-identical to each other and to "
+          f"the plain versions on the CPU", flush=True)
+
+    # the engine with the sharded index probes on the card through the
+    # globally sorted view and maps the rows back
+    if sharded.probe_stream_host(store, ids[:2]) is not None:
+        raise AssertionError("the sharded index took the host probe")
+    sids = store.ids()[:2 * UNIT_OVERLAP_READS:2]
+    base = get_runtime()
+    ovl = {}
+    try:
+        for kind, idx in (("plain", plain), ("sharded", sharded)):
+            if kind == "sharded":
+                set_runtime(ParallelContext(base.device, mesh=mesh))
+            eng = OverlapEngine(
+                store, idx, max_jump=cfg.maximum_jump,
+                min_overlap=cfg.min_overlap,
+                max_overhang=cfg.maximum_overhang, keep_alignment=False,
+                only_max_ext=True, max_divergence=1.0,
+                nucl_alignment=bool(cfg.reads_base_alignment),
+                use_hpc=bool(cfg.hpc_scoring_on))
+            res, t = timed(lambda: eng.get_overlaps_batch(store, sids))
+            ovl[kind] = ({sid: [(o.ext_id, o.cur_begin, o.cur_end,
+                                 o.ext_begin, o.ext_end, o.score,
+                                 o.divergence) for o in v]
+                          for sid, v in res.items()}, t)
+    finally:
+        set_runtime(base)
+    if ovl["plain"][0] != ovl["sharded"][0]:
+        raise AssertionError("the engine's overlaps with the sharded index "
+                             "differ from the plain index's")
+    n_ovl = sum(len(v) for v in ovl["sharded"][0].values())
+    if n_ovl == 0:
+        raise AssertionError("no overlaps in the engine check")
+    launches = dict(_cuda.LAUNCHES)
+    print(f"[sharded] engine on {len(sids)} reads: {n_ovl} overlaps equal "
+          f"with the sharded index (device probe, {ovl['sharded'][1]:.2f} "
+          f"s) and the plain one (host probe, {ovl['plain'][1]:.2f} s); "
+          f"(a) launches {launches}", flush=True)
+    check_launches("sharded units", launches, ("chain_dp",))
+    return launches
+
+
+def partition_bytes(out):
+    """Bytes under the run's .partition directory by file kind (the
+    name before its first "_": counts, gcounts, post, ms, est, ...)."""
+    pdir = os.path.join(out, "00-assembly", ".partition")
+    kinds = {}
+    for f in sorted(os.listdir(pdir)):
+        kind = f.split("_")[0]
+        kinds[kind] = kinds.get(kind, 0) + os.path.getsize(
+            os.path.join(pdir, f))
+    return kinds
+
+
+def partitioned_runs():
+    """Phase 15 (b): phase 5's raw path in two fresh processes (RANK
+    0/1 of WORLD_SIZE 2, one output directory) with
+    FLYE_TPU_PARTITIONED=1, each on a 2-shard mesh of the card
+    (`local_mesh`) and holding its own launches against the plain
+    versions (`LaunchCheck`): both exit 0, each shard holds 25-75% of
+    the k-mers, the worker writes its ava shard, the draft equals phase
+    5's byte for byte and the assembly meets phase 5's floors.  Returns
+    both processes' launches, summed."""
+    out5, reads, glen, _ = KEPT["raw"]
+    run5 = KEPT["raw_run"]
+    out = os.path.join(RUN_DIR, "main", "out_partitioned")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--pacbio-raw", reads, "-o", out, "-g", f"{glen}", "--device",
+            "cuda", "--debug"]
+    t0 = time.perf_counter()
+    coord, worker = child_runs(
+        [(f"partitioned-{rank}", argv,
+          {"RANK": str(rank), "WORLD_SIZE": "2",
+           "FLYE_TPU_PARTITIONED": "1"}, True, 2)
+         for rank in (0, 1)], SHARDED_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    held = []
+    for rank, r in enumerate((coord, worker)):
+        if r["n_devices"] != 2:
+            raise AssertionError(f"process {rank} ran on "
+                                 f"{r['n_devices']} shard(s), not 2")
+        m = next((SHARD_LINE.match(x) for x in r["steps"]
+                  if SHARD_LINE.match(x)), None)
+        if m is None or (int(m.group(1)), int(m.group(2))) != (rank, 2):
+            raise AssertionError(f"process {rank} logged no shard of 2")
+        held.append((int(m.group(3)), int(m.group(4))))
+    total = sum(h[0] for h in held)
+    for h in held:
+        if not 0.25 * total <= h[0] <= 0.75 * total:
+            raise AssertionError(f"shard sizes {held}: not a hash split")
+    if not os.path.exists(os.path.join(out, "00-assembly",
+                                       "ava_shard_1.npz")):
+        raise AssertionError("the worker wrote no ava_shard_1.npz")
+    launches = {k: coord["launches"][k] + worker["launches"][k]
+                for k in KERNELS}
+    check_launches("partitioned", launches, RAW_PATH_KERNELS,
+                   must_not=("polish_fused",))
+    differ = same_files(out5, out, ["00-assembly/draft_assembly.fasta"])
+    if differ:
+        raise AssertionError("the partitioned draft_assembly.fasta differs "
+                             "from phase 5's")
+    checked = run5["checked"]
+    _, n_contigs = identity("partitioned",
+                            os.path.join(out, "assembly.fasta"),
+                            run5["genome"],
+                            ASSEMBLY_IDENTITY_FLOOR if checked else None)
+    if checked and n_contigs != ASSEMBLY_CONTIGS:
+        raise AssertionError(f"{n_contigs} contigs in the partitioned "
+                             f"assembly.fasta, the CPU run has "
+                             f"{ASSEMBLY_CONTIGS}")
+    same = not same_files(out5, out, ["assembly.fasta"])
+    print(f"[partitioned] wall {coord['wall']:.1f} s to assembly.fasta in "
+          f"the coordinator (phase 5, with its census: {run5['wall']:.1f} "
+          f"s; both processes with their start and launch checks "
+          f"{wall:.1f} s); stages: coordinator {coord['jobs']}, worker "
+          f"{worker['jobs']}, phase 5 {run5['jobs']}", flush=True)
+    for step in ("index build", "divergence estimation",
+                 "overlap prefetch", "overlap prefetch (host shard)",
+                 "ava shard merge", "polish: read mapping",
+                 "polish: bubble extraction", "polish: bubble kernels"):
+        print(f"[partitioned] {step}: coordinator "
+              f"{step_walls(coord, step)} s, worker "
+              f"{step_walls(worker, step)} s, phase 5 "
+              f"{step_walls(run5, step)} s", flush=True)
+    for rank, r in enumerate((coord, worker)):
+        phases = [x for x in r["steps"] if x.startswith("partitioned ")
+                  and x.endswith(" s")]
+        print(f"[partitioned] process {rank}: shard {held[rank][0]} k-mers "
+              f"/ {held[rank][1]} postings; {phases}; launches K1 "
+              f"{r['launches']['chain_dp']} K2 "
+              f"{r['launches']['polish_backward']} K3 "
+              f"{r['launches']['polish_forward_score']} K4 "
+              f"{r['launches']['polish_fused']} K5 "
+              f"{r['launches']['levenshtein']}; device peak "
+              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    kinds = partition_bytes(out)
+    print(f"[partitioned] {sum(kinds.values())} bytes under "
+          f"00-assembly/.partition, by file kind {kinds}; "
+          f"draft_assembly.fasta byte-identical to "
+          f"phase 5's; assembly.fasta bytes "
+          f"{'equal' if same else 'differ from'} phase 5's", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
+def phase_sharded():
+    """Phase 15: the sharded plane on phase 5's raw reads
+    (`sharded_units`, `partitioned_runs`).  Returns the launches of
+    (a) and of (b)."""
+    import torch
+    if "raw_run" not in KEPT:
+        raise AssertionError("phase sharded needs phase main on cuda")
+    out, reads, _, _ = KEPT["raw"]
+    store, cfg = index_inputs(out, reads)
+    units = sharded_units(store, cfg)
+    del store
+    torch.cuda.empty_cache()
+    return units, partitioned_runs()
+
+
 PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "climb",
           "k1paths", "k23paths", "k4paths", "index",
-          "optstages", "multiproc")
+          "optstages", "multiproc", "sharded")
 
 
 def main():
@@ -3105,8 +3494,8 @@ def main():
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if "multiproc" in phases and "main" not in phases:
-        phases.append("main")   # phase 14 compares with phase 5's run
+    if {"multiproc", "sharded"} & set(phases) and "main" not in phases:
+        phases.append("main")   # phases 14-15 compare with phase 5's run
 
     import torch
     if not torch.cuda.is_available():
@@ -3134,7 +3523,8 @@ def main():
                       ("index", lambda: phase_index(report)),
                       ("optstages", lambda: phase_optstages(
                           args.main_device, report)),
-                      ("multiproc", phase_multiproc)):
+                      ("multiproc", phase_multiproc),
+                      ("sharded", phase_sharded)):
         if name in phases:
             t0 = time.perf_counter()
             out = run()
@@ -3148,6 +3538,8 @@ def main():
                 paths.update(out)
             elif name == "multiproc":
                 paths["multiproc"] = out
+            elif name == "sharded":
+                paths["sharded-units"], paths["partitioned"] = out
             print(f"[phase] {name} done in {time.perf_counter() - t0:.1f} s",
                   flush=True)
     shutil.rmtree(RUN_DIR, ignore_errors=True)

@@ -55,10 +55,11 @@ def assemble_disjointigs(store: SequenceStore, cfg: Config,
     index and computes overlaps for ITS host_partition of the reads;
     shards are exchanged through `work_dir` on the shared filesystem and
     the coordinator merges them before the (sequential) extension walk.
-    Worker processes return None after contributing their shard.  The
-    JAX package's hash-partitioned mode (FLYE_TPU_PARTITIONED=1 with
-    more than one process) and its sharded index (`--shards > 1`) are
-    not yet ported."""
+    Worker processes return None after contributing their shard.  With
+    FLYE_TPU_PARTITIONED=1 each process instead builds and holds only
+    its k-mer hash shard of the index, and the divergence estimation
+    and the ava probes route through the file bus
+    (`parallel/partitioned.py`)."""
     min_overlap = min_overlap or cfg.min_overlap
 
     # maxCurOverlaps economy: bound per-read overlap collection at
@@ -80,14 +81,21 @@ def assemble_disjointigs(store: SequenceStore, cfg: Config,
 
     from flye_tpu_torch.parallel.runtime import get_runtime
     rt = get_runtime()
-    if (rt.process_count > 1 and
-            os.environ.get("FLYE_TPU_PARTITIONED") == "1"):
-        raise NotImplementedError(
-            "the hash-partitioned multi-process mode "
-            "(FLYE_TPU_PARTITIONED=1) is not yet ported to flye_tpu_torch "
-            "(ROADMAP.md Queue 1 item 4)")
+    # hash-partitioned multi-process mode: each process builds and
+    # holds only its k-mer hash shard of the index (~1/P memory) and
+    # the ava probes route through the file bus
+    partitioned = (rt.process_count > 1 and
+                   os.environ.get("FLYE_TPU_PARTITIONED") == "1")
     with stage_timer("index build"):
-        index = build_read_index(store, cfg)
+        if partitioned:
+            if work_dir is None:
+                raise ValueError("partitioned build needs a shared "
+                                 "work_dir")
+            from flye_tpu_torch.parallel.partitioned import \
+                build_partitioned_index
+            index = build_partitioned_index(store, cfg, work_dir, rt)
+        else:
+            index = build_read_index(store, cfg)
 
     engine = OverlapEngine(
         store, index,
@@ -105,7 +113,12 @@ def assemble_disjointigs(store: SequenceStore, cfg: Config,
     # access, the dominant host allocation at scale (overlap/packed.py)
     ovlp_store = OverlapStore(engine, store, packed=True)
     with stage_timer("divergence estimation"):
-        ovlp_store.estimate_overlaper_parameters()
+        if partitioned:
+            from flye_tpu_torch.parallel.partitioned import \
+                partitioned_estimate_divergence
+            partitioned_estimate_divergence(ovlp_store, work_dir, rt)
+        else:
+            ovlp_store.estimate_overlaper_parameters()
         ovlp_store.set_divergence_threshold(
             cfg.assemble_ovlp_divergence,
             relative=bool(cfg.assemble_divergence_relative))
@@ -138,13 +151,19 @@ def assemble_disjointigs(store: SequenceStore, cfg: Config,
             raise ValueError("multi-process run needs a shared work_dir "
                              "for the ava shard exchange")
         with stage_timer("overlap prefetch (host shard)"):
-            mine = host_partition(store.ids(), rt.process_index,
-                                  rt.process_count)
-            logger.info("host %d/%d: computing overlaps for %d of "
-                        "%d reads", rt.process_index,
-                        rt.process_count, len(mine),
-                        len(store.ids()))
-            ovlp_store.prefetch(mine, progress_every=1000)
+            if partitioned:
+                from flye_tpu_torch.parallel.partitioned import \
+                    partitioned_prefetch
+                partitioned_prefetch(ovlp_store, work_dir, rt,
+                                     progress_every=50)
+            else:
+                mine = host_partition(store.ids(), rt.process_index,
+                                      rt.process_count)
+                logger.info("host %d/%d: computing overlaps for %d of "
+                            "%d reads", rt.process_index,
+                            rt.process_count, len(mine),
+                            len(store.ids()))
+                ovlp_store.prefetch(mine, progress_every=1000)
             if not is_coordinator():
                 ovlp_store.dump_shard(os.path.join(
                     work_dir, f"ava_shard_{rt.process_index}.npz"))

@@ -19,11 +19,13 @@ the canonical k-mer is the reverse-complement of the forward-strand
 k-mer, letting lookups synthesize reverse-strand matches exactly like
 the reference's KmerPosIterator (reference: src/sequence/vertex_index.h:158-174).
 
-Port of `flye_tpu/index/kmer_index.py`, single-device paths only: the
-w > 1 minimizer selection runs `ops.kmers.stream_select_packed` on the
-runtime's device; by default the w = 1 extraction, counting, selection,
-sorting and probing run in the native C++ helpers on the host, as in the
-JAX package's single-device path.  The device solid-k-mer selection
+Port of `flye_tpu/index/kmer_index.py` (the hash-sharded subclass is
+`index/sharded.py`): the w > 1 minimizer selection runs
+`ops.kmers.stream_select_packed` on the runtime's device, its row
+batches split over an active mesh as the device selection's and the
+device probe's are (`ParallelContext.map_rows`); by default the w = 1
+extraction, counting, selection, sorting and probing run in the native
+C++ helpers on the host, as in the JAX package's single-device path.  The device solid-k-mer selection
 (`build_solid(device_select=True)`, or FLYE_TPU_DEVICE_COUNT=1) and the
 device probe (`probe_stream_flat`, `probe_batch`, `lookup`) run on the
 runtime's device and give the same index and hits.  The repeat-kmer cutoff (repeat_kmer_rate x mean frequency,
@@ -219,9 +221,11 @@ class KmerIndex:
         starts_dev = rt.shard_rows(self._padded_starts(starts, n_total))
         kmers_l, seq_l, pos_l, flip_l = [], [], [], []
         for r0, chunk in self._stream_chunks(stream, n_total, w):
-            packed = stream_select_packed(
-                rt.shard_rows(chunk), starts_dev, r0, n_total,
-                k=k, w=w, sample=sample, step=step)
+            # the chunk's rows over the mesh (whole when inactive)
+            packed = rt.map_rows(
+                lambda lo, c: stream_select_packed(
+                    c, starts_dev.to(c.device), r0 + lo, n_total, k=k, w=w,
+                    sample=sample, step=step), chunk)
             rsel_t, cols_t = torch.nonzero(packed & 1, as_tuple=True)
             # int64 bit patterns of uint64 words (canon << 2 | flags):
             # at k = 31 a canon of 2^61 or more sets the sign bit, so
@@ -282,9 +286,10 @@ class KmerIndex:
                              dtype=torch.int64, device=rt.device)
         off = 0
         for r0, chunk in batches:
-            packed[off:off + chunk.size] = stream_select_packed(
-                rt.shard_rows(chunk), starts_dev, r0, n_total, k=k, w=1,
-                sample=sample, step=step).view(-1)
+            packed[off:off + chunk.size] = rt.map_rows(
+                lambda lo, c: stream_select_packed(
+                    c, starts_dev.to(c.device), r0 + lo, n_total, k=k,
+                    w=1, sample=sample, step=step), chunk).view(-1)
             off += chunk.size
         del batches
 
@@ -709,10 +714,18 @@ class KmerIndex:
         narrow = self.num_kmers < (1 << 28)
         shift = 28 if narrow else 32
         g_l, p_l = [], []
-        for r0, chunk in self._stream_chunks(stream, n_total, 1):
-            packed = stream_probe_packed(
-                rt.shard_rows(chunk), starts_dev, r0, n_total, up, rp,
+        tables = {up.device: (starts_dev, up, rp)}
+
+        def probe(lo, c):
+            if c.device not in tables:     # a copy on each mesh device
+                tables[c.device] = tuple(t.to(c.device) for t in
+                                         tables[up.device])
+            s_d, up_d, rp_d = tables[c.device]
+            return stream_probe_packed(
+                c, s_d, r0 + lo, n_total, up_d, rp_d,
                 max(0, self.num_kmers - 1), k=k, step=step, narrow=narrow)
+        for r0, chunk in self._stream_chunks(stream, n_total, 1):
+            packed = rt.map_rows(probe, chunk)
             rsel, cols = torch.nonzero((packed >> shift) & 3,  # hit | rep
                                        as_tuple=True)
             p_l.append(packed[rsel, cols].cpu().numpy())

@@ -17,8 +17,15 @@ set (`torchrun --standalone --nproc-per-node N -m flye_tpu_torch.main
 partition, process 0 (the coordinator) merges the workers' shards and
 runs the later stages, and the workers serve its read-mapping and
 bubble-polishing tasks over a file bus in OUT_DIR/.taskbus until it
-finishes.  `--shards` above 1 and the hash-partitioned mode
-(FLYE_TPU_PARTITIONED=1) are not yet ported.
+finishes.  With FLYE_TPU_PARTITIONED=1 such a run partitions the k-mer
+index by hash instead: each process builds and holds only its shard,
+and the all-vs-all probes go through files in OUT_DIR/00-assembly/
+.partition (`parallel/partitioned.py`).  `--shards N` builds a mesh of
+the first N visible devices of `--device` (one CPU for `--device cpu`)
+in each process: with more than one device the indexes are
+hash-sharded over it and the batched kernels split their rows
+(`parallel/runtime.py`).  Without it the mesh is one device: a split
+over distinct cards has not been run yet.
 
 Usage:
     python -m flye_tpu_torch.main --pacbio-raw reads.fasta -o out_dir \
@@ -555,8 +562,8 @@ def run_pipeline(args) -> int:
         # after contributing their ava shard; the coordinator fans them
         # out from its stages (the reference's analog is its process
         # pool over bubbles, flye/polishing/bubbles.py:96)
-        from flye_tpu_torch.parallel.distributed import \
-            set_barrier_abort_file
+        from flye_tpu_torch.parallel.distributed import (
+            set_barrier_abort_file, start_rendezvous)
         from flye_tpu_torch.parallel.taskbus import TaskBus, set_bus
         from flye_tpu_torch.polishing.polisher import \
             register_polish_handlers
@@ -573,6 +580,8 @@ def run_pipeline(args) -> int:
                           glob.glob(os.path.join(ctx.out_dir, "*",
                                                  ".partition"))):
                 shutil.rmtree(stale)
+        # no process goes on before that cleanup is done
+        start_rendezvous(ctx.out_dir)
         bus = TaskBus(bus_dir, rt.process_index)
         # workers abort barrier waits once the coordinator writes DONE
         # (e.g. a --stop-after stage the coordinator never enters)
@@ -665,8 +674,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-t", "--threads", type=int, default=1,
                         help="host threads")
     parser.add_argument("--shards", type=int, default=None,
-                        help="number of devices (only 1 is ported to "
-                        "flye_tpu_torch yet)")
+                        help="devices in each process's mesh (default 1; "
+                        "at most the visible devices of --device): with "
+                        "more than one the indexes are hash-sharded "
+                        "over them and the batched kernels split their "
+                        "rows")
     parser.add_argument("--polish-target", default=None, metavar="FASTA",
                         help="run the standalone polisher on this "
                              "sequence file instead of assembling "

@@ -155,7 +155,9 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record(stream)
-    err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
+    # the C launcher acts on the current device, which must own `stream`
+    with torch.cuda.device(device):
+        err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
     if hook is not None:
         end.record(stream)
         hook(name, start, end)

@@ -60,10 +60,16 @@ def chain_dp_multi(buckets, k: int, max_jump: int, lookback: int):
     buckets: sequence of (cur [T,M] int32, ext, nvalid [T]) tensors.
     Returns one flat int32 tensor laid out as, per bucket,
     [score rows..., parent rows...]; callers slice by the known shapes
-    (the JAX package's single-fetch layout)."""
+    (the JAX package's single-fetch layout).  On an active mesh each
+    bucket's rows split over its devices (`ParallelContext.map_rows`):
+    K1 launches once per device block."""
+    from flye_tpu_torch.parallel.runtime import get_runtime
+    rt = get_runtime()
     outs = []
     for cur, ext, nv in buckets:
-        s, p = chain_dp(cur, ext, nv, k, max_jump, lookback)
+        s, p = rt.map_rows(
+            lambda _, c, e, n: chain_dp(c, e, n, k, max_jump, lookback),
+            cur, ext, nv)
         outs.append(s.reshape(-1))
         outs.append(p.reshape(-1))
     return torch.cat(outs)

@@ -6,9 +6,11 @@ minimizer selection of the consensus read mapper's index build
 (`stream_select_packed`, with its `splitmix64` hash and
 `_sliding_min`), the padded-batch k-mers (`extract_kmers`,
 `canonical_kmers`), the flat-stream index probe
-(`stream_probe_packed`) and the device solid-k-mer selection
-(`solid_select_device`).  The JAX functions are plain XLA (no Pallas),
-so these are plain tensor code on whatever device their input lies on.
+(`stream_probe_packed`), the device solid-k-mer selection
+(`solid_select_device`), and the mesh step's `kmer_hashes` and
+`minimizer_mask`, with `umod`, the uint64 modulo of hash shards.  The
+JAX functions are plain XLA (no Pallas), so these are plain tensor
+code on whatever device their input lies on.
 
 uint64 semantics on int64 tensors: PyTorch has no usable uint64
 arithmetic, so hashes are kept as their int64 bit patterns.  Multiplies
@@ -114,6 +116,45 @@ def canonical_kmers(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     fwd, rc, valid = extract_kmers(codes, lengths, k)
     is_fwd = fwd <= rc
     return torch.where(is_fwd, fwd, rc), is_fwd, valid
+
+
+def umod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """h mod n for the uint64 values whose int64 bit patterns h holds
+    (a signed `%` differs unless n is a power of two): the high and low
+    32-bit halves reduced apart, hi * 2^32 + lo = hi * (2^32 mod n) +
+    lo (mod n)."""
+    hi, lo = _lshr(h, 32), h & 0xFFFFFFFF
+    return ((hi % n) * ((1 << 32) % n) + lo % n) % n
+
+
+def kmer_hashes(codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """Canonical k-mers and their hashes, invalid positions forced to the
+    max uint64 hash (bit pattern -1).  Returns (canon, hashes, valid)."""
+    canon, _, valid = canonical_kmers(codes, lengths, k)
+    h = torch.where(valid, splitmix64(canon), torch.full_like(canon, -1))
+    return canon, h, valid
+
+
+def minimizer_mask(hashes: torch.Tensor, valid: torch.Tensor,
+                   w: int) -> torch.Tensor:
+    """Minimizer positions: p is chosen iff its hash attains the minimum
+    (uint64 order) of some fully in-bounds length-w window of k-mer
+    positions; every tied minimum is chosen (see the JAX function)."""
+    if w <= 1:
+        return valid
+    h = torch.where(valid, hashes ^ _ORDER_FLIP,
+                    torch.full_like(hashes, _INVALID_FLIPPED))
+    win_min = _sliding_min(h, w, _INVALID_FLIPPED)
+    n = h.shape[-1]
+    idx = torch.arange(n, device=h.device)
+    # window s is fully in bounds iff its last position s+w-1 is valid
+    win_ok = torch.roll(valid, -(w - 1), dims=-1) & (idx < n - (w - 1))
+    selected = torch.zeros_like(valid)
+    for j in range(w):
+        # the window starting at s = p - j
+        okj = torch.roll(win_ok, j, dims=-1) & (idx >= j)
+        selected |= okj & (torch.roll(win_min, j, dims=-1) == h)
+    return valid & selected
 
 
 def stream_select_packed(chunks: torch.Tensor, starts: torch.Tensor,

@@ -907,9 +907,30 @@ def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
 
     Returns numpy (cand [B, Cb], cand_len [B], score [B], iters [B]).
     """
-    from flye_tpu_torch.parallel.runtime import get_runtime
-    device = torch.device(device if device is not None
-                          else get_runtime().device)
+    from flye_tpu_torch.parallel.runtime import device_scope, get_runtime
+    rt = get_runtime()
+    blocks = rt.row_blocks(len(cand)) if device is None else []
+    if len(blocks) > 1:
+        # the bubble batch over the mesh, the JAX package's sharded
+        # route (the polish phase is embarrassingly parallel over
+        # windows, bubble_processor.h:29): each device climbs its block
+        # of lanes on the route the device takes (resident on a card,
+        # with its own graph captures); lanes are independent, so the
+        # blocks give the whole batch's results.  Each block runs with
+        # its device current: graph replays and the C launchers act on
+        # the current device
+        outs = []
+        for dev, lo, hi in blocks:
+            with device_scope(dev):
+                outs.append(polish_bubbles(
+                    cand[lo:hi], cand_len[lo:hi], branches[lo:hi],
+                    blen[lo:hi], bmask[lo:hi], subs, max_iters,
+                    block_size=block_size, steepest=steepest,
+                    use_kernel=use_kernel, device=dev, fused=fused,
+                    resident=resident))
+        return tuple(np.concatenate([o[i] for o in outs])
+                     for i in range(4))
+    device = torch.device(device if device is not None else rt.device)
     if resident is None:
         resident = (device.type == "cuda" and use_kernel is not False
                     and not os.environ.get("FLYE_TPU_HOST_POLL"))

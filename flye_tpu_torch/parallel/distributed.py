@@ -9,9 +9,10 @@ barrier (`file_barrier`), and the coordinator merges the shards and
 carries the host-plane stages alone while the workers serve the file
 task bus (`parallel/taskbus.py`).  This plane needs only (index, count)
 and a shared filesystem: nothing in it runs a collective, so no
-`torch.distributed` process group is opened here.  The sharded index
-and `--shards > 1` (the JAX package's `mesh.py` collectives) will open
-one; they are not ported yet.
+`torch.distributed` process group is opened.  The hash-partitioned mode
+(`partitioned.py`) exchanges its counts, postings and match streams
+over the same files; the mesh collectives (`mesh.py`) run between the
+devices of one process.
 
 The topology comes from PyTorch's launcher convention, `RANK` and
 `WORLD_SIZE` (set by `torchrun --standalone --nproc-per-node N`, or by
@@ -22,7 +23,9 @@ the identity.
 from __future__ import annotations
 
 import os
+import shutil
 import time
+import uuid
 from typing import List, Optional, Sequence, Tuple
 
 
@@ -113,3 +116,74 @@ def file_barrier(work_dir: str, name: str, timeout_s: float = 3600.0,
         if time.monotonic() > deadline:
             raise TimeoutError(f"file_barrier {name}: {n}/{count}")
         time.sleep(poll_s)
+
+
+def _publish(path: str, text: str) -> None:
+    """Write `text` to `path` atomically (write, then rename)."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def start_rendezvous(run_dir: str, timeout_s: float = 3600.0,
+                     poll_s: float = 0.05) -> None:
+    """The start of a multi-process run: no worker goes on before the
+    coordinator, which calls this once it has removed what a prior
+    attempt left in `run_dir` (barrier sentinels, exchange files), has
+    seen it.  The JAX package's processes get this hold from
+    `jax.distributed.initialize`; without it a worker that starts
+    first could publish a barrier sentinel or an exchange file that
+    the coordinator's cleanup then deletes, and the run would wait
+    forever.
+
+    Each worker publishes a fresh nonce in `run_dir/.hello/<p>` and
+    waits for the coordinator to echo it in `<p>.ack`; it publishes the
+    nonce again whenever the file is gone (the coordinator clears
+    `.hello` first, which drops a prior attempt's nonces and echoes).
+    """
+    from flye_tpu_torch.parallel.runtime import get_runtime
+    rt = get_runtime()
+    pid, count = rt.process_index, rt.process_count
+    if count <= 1:
+        return
+    hdir = os.path.join(run_dir, ".hello")
+    deadline = time.monotonic() + timeout_s
+
+    def wait(what):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"start_rendezvous: {what}")
+        time.sleep(poll_s)
+
+    if pid == 0:
+        shutil.rmtree(hdir, ignore_errors=True)
+        os.makedirs(hdir, exist_ok=True)
+        pending = set(range(1, count))
+        while pending:
+            for w in sorted(pending):
+                try:
+                    with open(os.path.join(hdir, str(w))) as f:
+                        nonce = f.read()
+                except FileNotFoundError:
+                    continue
+                _publish(os.path.join(hdir, f"{w}.ack"), nonce)
+                pending.discard(w)
+            if pending:
+                wait(f"no word from processes {sorted(pending)}")
+        return
+    nonce = uuid.uuid4().hex
+    mine = os.path.join(hdir, str(pid))
+    while True:
+        try:
+            with open(mine + ".ack") as f:
+                if f.read() == nonce:
+                    return
+        except FileNotFoundError:
+            pass
+        if not os.path.exists(mine):
+            try:
+                os.makedirs(hdir, exist_ok=True)
+                _publish(mine, nonce)
+            except FileNotFoundError:   # the coordinator's cleanup
+                continue
+        wait("no word from the coordinator")

@@ -8,8 +8,9 @@ windows hill-climb in lockstep.  In a multi-process run the coordinator
 fans read-mapping chunks and packed bubble batches out over the file
 task bus (`parallel/taskbus.py`) to the worker processes, which map on
 their own device and polish with the native CPU climber, and claims
-pending tasks itself while it waits.  Device sharding (`--shards > 1`)
-and the hash-partitioned multi-process mode are not yet ported.
+pending tasks itself while it waits.  On an active device mesh
+(`--shards`) each bubble batch splits its lanes over the mesh's
+devices (`ops.polish.polish_bubbles`).
 The consensus stage (reference: flye/polishing/consensus.py) is the same
 machinery — a polishing pass with the draft as candidate ("consensus is
 polishing iteration zero").

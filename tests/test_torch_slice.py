@@ -121,8 +121,11 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_runtime(device="cuda")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        init_runtime(n_shards=2, device="cpu")
+    # --device cpu sees one CPU: --shards 2 gives an inactive one-device
+    # mesh, as the JAX package's runtime on one device
+    rt = init_runtime(n_shards=2, device="cpu")
+    assert not rt.active and rt.n_devices == 1
+    assert rt.device == torch.device("cpu")
 
 
 def test_library_runtime_defaults_to_cuda():
