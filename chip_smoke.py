@@ -1984,15 +1984,15 @@ def child_main(spec):
     spec's `mesh`, on a mesh of that many shards of the card
     (`local_mesh`).  Prints its report as the last line: wall s, seconds
     per stage, the step lines, device peak bytes, the run's launches,
-    the engine's summed probe phase s, the calls of each index path and
-    the runtime's devices."""
+    the seconds of its "overlap: probe" spans, the calls of each index
+    path and the runtime's devices."""
     import torch
     from flye_tpu_torch.ops import _cuda
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     sys.path.insert(0, ROOT)
-    from flye_tpu_torch.overlap.engine import phase_times
     from flye_tpu_torch.parallel.runtime import get_runtime
+    from flye_tpu_torch.utils import trace
     spec = json.loads(spec)
     rec = LaunchCheck(on=spec["check"], phase=spec["tag"])
     torch.cuda.reset_peak_memory_stats()
@@ -2009,9 +2009,12 @@ def child_main(spec):
             raise AssertionError(f"{spec['tag']}: no launch of "
                                  f"{launched - rec.kernels()} kept to check")
         rec.check("path")
+    argv = spec["argv"]
+    probe = trace.job_record(argv[argv.index("-o") + 1])["spans"].get(
+        "overlap: probe", {})
     print(json.dumps({"wall": wall, "jobs": jobs, "steps": steps,
                       "peak": peak, "launches": launches,
-                      "probe_s": phase_times().get("probe", 0.0),
+                      "probe_s": probe.get("total_s", 0.0),
                       "index_calls": calls,
                       "n_devices": get_runtime().n_devices}), flush=True)
 

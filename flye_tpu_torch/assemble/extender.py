@@ -19,6 +19,7 @@ from flye_tpu_torch.assemble.chimera import ChimeraDetector, iter_no_overhang
 from flye_tpu_torch.io.seqstore import SeqId, SequenceStore
 from flye_tpu_torch.overlap.engine import OverlapStore
 from flye_tpu_torch.overlap.structs import Overlap
+from flye_tpu_torch.utils import trace
 
 logger = logging.getLogger("flye_tpu_torch")
 
@@ -198,7 +199,8 @@ class Extender:
     def assemble_disjointigs(self) -> None:
         """(reference: extender.cpp:213-429 assembleDisjointigs)."""
         logger.info("Extending reads")
-        self.chim.estimate_global_coverage()
+        with trace.span("extension: coverage"):
+            self.chim.estimate_global_coverage()
         self._inner.clear()
         covered: Set[int] = set()
 

@@ -43,6 +43,7 @@ import torch
 
 from flye_tpu_torch.io.seqstore import SequenceStore
 from flye_tpu_torch.ops.kmers import canonical_kmers, probe_words
+from flye_tpu_torch.utils import trace
 
 logger = logging.getLogger("flye_tpu_torch")
 
@@ -230,8 +231,9 @@ class KmerIndex:
             # int64 bit patterns of uint64 words (canon << 2 | flags):
             # at k = 31 a canon of 2^61 or more sets the sign bit, so
             # the k-mer comes out by a logical shift of the uint64 view
-            p = packed[rsel_t, cols_t].cpu().numpy()
-            rsel, cols = rsel_t.cpu().numpy(), cols_t.cpu().numpy()
+            p = trace.readback(packed[rsel_t, cols_t]).cpu().numpy()
+            rsel = trace.readback(rsel_t).cpu().numpy()
+            cols = trace.readback(cols_t).cpu().numpy()
             g = (r0 + rsel.astype(np.int64)) * step + cols - (w - 1)
             rid = np.searchsorted(starts, g, side="right") - 1
             kmers_l.append((p.view(np.uint64) >> np.uint64(2))
@@ -299,7 +301,8 @@ class KmerIndex:
             W=W, step=step, tandem_freq=tandem_freq,
             global_min=global_min_freq)
         del packed
-        pk_h, pg_h = pk.cpu().numpy(), pg.cpu().numpy()
+        pk_h = trace.readback(pk).cpu().numpy()
+        pg_h = trace.readback(pg).cpu().numpy()
         rid = np.searchsorted(starts, pg_h, side="right") - 1
         kmers = (pk_h.view(np.uint64) >> np.uint64(2)).astype(np.int64)
         flip = (pk_h >> 1) & 1 == 0
@@ -414,9 +417,15 @@ class KmerIndex:
         ids = list(ids) if ids is not None else store.ids()
         logger.info("Building minimizer index (k=%d, w=%d) over %d seqs",
                     k, w, len(ids))
-        kmers, seq, pos, flip = idx._extract_selected(ids, w=w, sample=1)
-        kmers, seq, pos, flip = cls._sort_triples(kmers, seq, pos, flip)
-        idx._finalize(kmers, seq, pos, flip, min_cov, repeat_kmer_rate)
+        with trace.span("index: extract"):
+            kmers, seq, pos, flip = idx._extract_selected(ids, w=w,
+                                                          sample=1)
+        with trace.span("index: sort"):
+            kmers, seq, pos, flip = cls._sort_triples(kmers, seq, pos,
+                                                      flip)
+        with trace.span("index: finalize"):
+            idx._finalize(kmers, seq, pos, flip, min_cov,
+                          repeat_kmer_rate)
         total_len = sum(store.length(i) for i in ids)
         total_entries = int(idx.counts.sum()) if len(idx.counts) else 1
         idx.sample_rate = total_len / max(1, total_entries)
@@ -481,9 +490,12 @@ class KmerIndex:
                       repeat_kmer_rate, ids) -> "KmerIndex":
         """Sort and finalize the selected postings; the sample rate is
         the indexed bases per kept posting."""
-        kmers, seq, pos, flip = self._sort_triples(kmers, seq, pos, flip)
-        self._finalize(kmers, seq, pos, flip, global_min_freq,
-                       repeat_kmer_rate)
+        with trace.span("index: sort"):
+            kmers, seq, pos, flip = self._sort_triples(kmers, seq, pos,
+                                                       flip)
+        with trace.span("index: finalize"):
+            self._finalize(kmers, seq, pos, flip, global_min_freq,
+                           repeat_kmer_rate)
         total_len = sum(self.store.length(i) for i in ids)
         total_entries = int(self.counts.sum()) if len(self.counts) else 1
         self.sample_rate = total_len / max(1, total_entries)
@@ -494,10 +506,20 @@ class KmerIndex:
         """Host counting + per-read frequency selection for the solid
         index; returns the selected (kmers, seq, pos, flip) triples in
         stream order."""
-        kmers, seq, pos, flip = self._extract_selected(ids, w=1,
-                                                       sample=sample)
+        with trace.span("index: extract"):
+            kmers, seq, pos, flip = self._extract_selected(ids, w=1,
+                                                           sample=sample)
         if len(kmers) == 0:
             return kmers, seq, pos, flip
+        with trace.span("index: count"):
+            freq = self._count_freqs(kmers)
+        with trace.span("index: select"):
+            return self._select_with_freq(kmers, seq, pos, flip, freq,
+                                          select_rate, tandem_freq,
+                                          global_min_freq)
+
+    def _count_freqs(self, kmers: np.ndarray) -> np.ndarray:
+        """Each stream position's global canonical-kmer frequency."""
         from flye_tpu_torch import native
         mod = native.get()
         table_bytes = 1 << (2 * self.k)
@@ -547,9 +569,7 @@ class KmerIndex:
                 [starts, [len(skmers)]])).astype(np.int64)
             freq = np.empty(len(kmers), dtype=np.int64)
             freq[order] = np.repeat(cnt_vals, cnt_vals)
-        return self._select_with_freq(kmers, seq, pos, flip, freq,
-                                      select_rate, tandem_freq,
-                                      global_min_freq)
+        return freq
 
     def _select_with_freq(self, kmers, seq, pos, flip, freq,
                           select_rate, tandem_freq, global_min_freq):
@@ -620,7 +640,8 @@ class KmerIndex:
         up, _ = self._device_tables()
         row, found = _lookup_device(up, torch.from_numpy(q).to(up.device),
                                     self.num_kmers - 1)
-        return row.cpu().numpy(), found.cpu().numpy()
+        return (trace.readback(row).cpu().numpy(),
+                trace.readback(found).cpu().numpy())
 
     def probe_batch(self, batch, lens):
         """Fused canonicalize + lookup over a padded query batch
@@ -631,8 +652,9 @@ class KmerIndex:
         narrow = self.num_kmers < (1 << 28)
         b, ln = (torch.from_numpy(np.ascontiguousarray(x)).to(up.device)
                  for x in (batch, lens))
-        packed = _probe_device(b, ln, up, rp, max(0, self.num_kmers - 1),
-                               self.k, narrow).cpu().numpy()
+        packed = trace.readback(_probe_device(
+            b, ln, up, rp, max(0, self.num_kmers - 1), self.k,
+            narrow)).cpu().numpy()
         shift = 28 if narrow else 32
         row = (packed & ((1 << shift) - 1)).astype(np.int64)
         hit = ((packed >> shift) & 1).astype(bool)
@@ -728,8 +750,9 @@ class KmerIndex:
             packed = rt.map_rows(probe, chunk)
             rsel, cols = torch.nonzero((packed >> shift) & 3,  # hit | rep
                                        as_tuple=True)
-            p_l.append(packed[rsel, cols].cpu().numpy())
-            g_l.append(((r0 + rsel) * step + cols).cpu().numpy())
+            p_l.append(trace.readback(packed[rsel, cols]).cpu().numpy())
+            g_l.append(trace.readback((r0 + rsel) * step + cols)
+                       .cpu().numpy())
         p, g = np.concatenate(p_l), np.concatenate(g_l)
         is_hit = ((p >> shift) & 1).astype(bool)
         ph = p[is_hit]

@@ -24,6 +24,7 @@ import torch
 from flye_tpu_torch.index.kmer_index import KmerIndex
 from flye_tpu_torch.io.seqstore import SequenceStore
 from flye_tpu_torch.ops.kmers import splitmix64
+from flye_tpu_torch.utils import trace
 
 logger = logging.getLogger("flye_tpu_torch")
 
@@ -104,9 +105,10 @@ class ShardedKmerIndex(KmerIndex):
         fn, prepare = posting_exchange_step(mesh, n_per_dev, cap)
         sk, sp, n_dropped, n_recv = fn(*prepare(kmers, _pack(seq, pos,
                                                              flip)))
-        sk, sp, n_recv = sk.cpu().numpy(), sp.cpu().numpy(), \
-            n_recv.cpu().numpy()
-        self.n_dropped = int(n_dropped.sum())
+        sk = trace.readback(sk).cpu().numpy()
+        sp = trace.readback(sp).cpu().numpy()
+        n_recv = trace.readback(n_recv).cpu().numpy()
+        self.n_dropped = int(trace.readback(n_dropped).sum())
         if self.n_dropped:
             logger.warning("posting exchange dropped %d postings "
                            "(capacity %d/pair); increase cap_slack",

@@ -48,11 +48,11 @@ import sys
 from typing import Dict, List, Optional
 
 import numpy as np
-from torch.profiler import record_function
 
 from flye_tpu_torch.config import Config, PIPELINE, setup_run_params
 from flye_tpu_torch.io.fasta import write_fasta
 from flye_tpu_torch.io.seqstore import SequenceStore
+from flye_tpu_torch.utils import trace
 from flye_tpu_torch.utils.logs import configure_logging
 
 logger = logging.getLogger("flye_tpu_torch")
@@ -132,7 +132,10 @@ class RunContext:
 
     def load_reads(self) -> SequenceStore:
         if self.reads is None:
-            self.reads = SequenceStore.from_files(self.reads_files)
+            with trace.span("reads: load"):
+                self.reads = SequenceStore.from_files(self.reads_files)
+            trace.count("reads.count", len(self.reads))
+            trace.count("reads.bases", int(self.reads.total_length))
             logger.info("Loaded %d reads, %d total bases",
                         len(self.reads), self.reads.total_length)
         return self.reads
@@ -518,7 +521,10 @@ def create_job_list(ctx: RunContext) -> List[Job]:
     return jobs
 
 
-def run_pipeline(args) -> int:
+def _setup_pipeline(args):
+    """The run's context, its job list, the index of the first job to
+    run (after the resume checks) and, in a multi-process run, its task
+    bus."""
     from flye_tpu_torch.parallel.runtime import init_runtime
 
     ctx = RunContext(args)
@@ -550,7 +556,7 @@ def run_pipeline(args) -> int:
                     f"Can't resume: stage '{j.name}' outputs missing")
         # configure must re-run to rebuild the in-memory config
         if start_from > 0:
-            with record_function(f"stage {jobs[0].name}"):
+            with trace.span(f"stage {jobs[0].name}"):
                 jobs[0].run()
 
     from flye_tpu_torch.parallel.runtime import get_runtime
@@ -590,6 +596,15 @@ def run_pipeline(args) -> int:
                                  reads_provider=ctx.load_reads)
         if coordinator:
             set_bus(bus)
+    return ctx, jobs, start_from, bus
+
+
+def run_pipeline(args) -> int:
+    with trace.span("pipeline: setup"):
+        ctx, jobs, start_from, bus = _setup_pipeline(args)
+    from flye_tpu_torch.parallel.runtime import get_runtime
+    rt = get_runtime()
+    coordinator = rt.process_index == 0
 
     def _serve_worker():
         bus.serve()
@@ -610,7 +625,7 @@ def run_pipeline(args) -> int:
             if coordinator:  # workers must not race the checkpoint file
                 job.save_checkpoint()
             logger.info(">>> STAGE: %s", job.name)
-            with record_function(f"stage {job.name}"):
+            with trace.span(f"stage {job.name}"):
                 job.run()
             if args.stop_after == job.name:
                 if not coordinator:
@@ -621,6 +636,7 @@ def run_pipeline(args) -> int:
     finally:
         if bus is not None and coordinator:
             bus.shutdown()
+            from flye_tpu_torch.parallel.taskbus import set_bus
             set_bus(None)
     if not coordinator:
         _serve_worker()
@@ -740,10 +756,12 @@ def _run_polisher_only(args) -> int:
     from flye_tpu_torch.parallel.runtime import init_runtime
     from flye_tpu_torch.polishing.polisher import polish
 
-    ctx = RunContext(args)
-    init_runtime(args.shards, args.device)
-    logger.info("Running standalone polisher on %s", args.polish_target)
-    target = read_seq_file(args.polish_target)
+    with trace.span("pipeline: setup"):
+        ctx = RunContext(args)
+        init_runtime(args.shards, args.device)
+        logger.info("Running standalone polisher on %s",
+                    args.polish_target)
+        target = read_seq_file(args.polish_target)
     if not target:
         raise PipelineException(f"empty target: {args.polish_target}")
     reads = ctx.load_reads()
@@ -768,6 +786,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         extra = f"assemble_ovlp_divergence={args.hifi_error}"
         args.extra_params = (f"{args.extra_params},{extra}"
                              if args.extra_params else extra)
+    with trace.job(args.out_dir):
+        return _run(args)
+
+
+def _run(args) -> int:
+    """One job: the polisher alone, or the pipeline (profiled with
+    --profile); 1 with the error logged if it fails."""
     os.makedirs(args.out_dir, exist_ok=True)
     configure_logging(os.path.join(args.out_dir, "flye.log"),
                       debug=args.debug)

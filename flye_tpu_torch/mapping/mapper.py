@@ -22,6 +22,7 @@ from flye_tpu_torch.index import build_minimizer_index
 from flye_tpu_torch.io.seqstore import SequenceStore
 from flye_tpu_torch.overlap.engine import OverlapEngine
 from flye_tpu_torch.overlap.structs import Overlap
+from flye_tpu_torch.utils import trace
 
 logger = logging.getLogger("flye_tpu_torch")
 
@@ -83,8 +84,8 @@ class ReadMapper:
         while gi < len(groups) or futs:
             while gi < len(groups) and len(futs) < 2:
                 futs.append((groups[gi], ex.submit(
-                    self.engine.get_overlaps_batch, reads, groups[gi],
-                    True)))
+                    trace.carry(self.engine.get_overlaps_batch), reads,
+                    groups[gi], True)))
                 gi += 1
             group, fut = futs.pop(0)
             res = fut.result()

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from flye_tpu_torch.ops import _cuda
+from flye_tpu_torch.utils import trace
 
 # segment-length buckets
 SEGMENT_BUCKETS = (16, 64, 256, 1024)
@@ -183,14 +184,17 @@ class SegmentBatcher:
             # rows padded to a power of two (the JAX package's batch
             # shapes); padded rows have zero lengths -> distance 0
             B = 1 << max(4, (len(rows) - 1).bit_length())
-            av = _pad_rows(a_flat, a_start[rows], al[rows], B, s)
-            bv = _pad_rows(b_flat, b_start[rows], bl[rows], B, s)
-            alp = np.zeros(B, dtype=np.int32)
-            blp = np.zeros(B, dtype=np.int32)
-            alp[:len(rows)] = al[rows]
-            blp[:len(rows)] = bl[rows]
-            d = edit_distance_batch(
-                *get_runtime().shard_rows(av, alp, bv, blp)).cpu().numpy()
+            with trace.span("align: pack"):
+                av = _pad_rows(a_flat, a_start[rows], al[rows], B, s)
+                bv = _pad_rows(b_flat, b_start[rows], bl[rows], B, s)
+                alp = np.zeros(B, dtype=np.int32)
+                blp = np.zeros(B, dtype=np.int32)
+                alp[:len(rows)] = al[rows]
+                blp[:len(rows)] = bl[rows]
+            with trace.span("align: distance"):
+                d = trace.readback(edit_distance_batch(
+                    *get_runtime().shard_rows(av, alp, bv, blp))
+                ).cpu().numpy()
             out[rows] += d[:len(rows)]
         return out
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from flye_tpu_torch.ops import _cuda
+from flye_tpu_torch.utils import trace
 
 _NEG = -(2 ** 30)
 _MAX_RING = 16384   # the kernel's shared-memory ring holds <= this many
@@ -108,7 +109,7 @@ def _chain_dp_scan(cur: torch.Tensor, ext: torch.Tensor,
     cur_w = cur_r.unfold(1, L, 1)                      # [T, M+1, L]
     ext_w = ext_r.unfold(1, L, 1)
     parent = torch.full((T, M), -1, dtype=torch.int32, device=dev)
-    nv_h = nv_s.tolist()
+    nv_h = trace.readback(nv_s).tolist()
     chunk = max(1, (1 << 22) // max(1, T * L))
     for i0 in range(1, nv_h[0] if T else 0, chunk):
         i1 = min(nv_h[0], i0 + chunk)

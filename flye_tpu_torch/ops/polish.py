@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as tnf
 
 from flye_tpu_torch.ops import _cuda
+from flye_tpu_torch.utils import trace
 
 NEG = -1e30
 _EPS = 1e-3   # minimum score gain for an edit (f32, as the JAX package)
@@ -623,7 +624,9 @@ def _converge(cand, cand_len, branches, blen, bmask, subs, groups: int,
     streak = torch.zeros(Bb, dtype=torch.int32, device=dev)
     score = torch.zeros(Bb, dtype=torch.float32, device=dev)
     iters = torch.zeros(Bb, dtype=torch.int32, device=dev)
+    steps = 0
     for it in range(max_iters):
+        steps += 1
         if groups > 1:
             cand_s = cand.repeat_interleave(groups, dim=0)
             clen_s = cand_len.repeat_interleave(groups, dim=0)
@@ -635,8 +638,9 @@ def _converge(cand, cand_len, branches, blen, bmask, subs, groups: int,
             block_size=block_size, steepest=steepest)
         if (it + 1) % poll_every == 0 or it == max_iters - 1:
             iters = torch.where(done, iters, it + 1)
-            if bool(done.all()):
+            if bool(trace.readback(done.all())):
                 break
+    trace.count("climb.lane_steps", Bb * steps)
     return cand, cand_len, score, iters
 
 
@@ -795,7 +799,7 @@ class _Climb:
         with torch.cuda.stream(side):
             self._steps(1)
         torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(trace.readback(dev))
         if not any(c.graph is not None and c.device == dev
                    for c in _CLIMBS.values()):
             _POOLS[dev] = torch.cuda.graph_pool_handle()
@@ -810,22 +814,33 @@ class _Climb:
         bmask, subs), numpy.  Returns numpy (cand, cand_len, score,
         iters), read back in one copy."""
         B, Cb, Bg, R, S = self.shape
-        with torch.profiler.record_function(
+        steps = 0
+        with trace.span(
                 f"climb (Cb,S,R)=({Cb},{S},{R}) x{Bg} {self.route}"):
             self._load(arrays, max_iters)
             if self.device.type == "cuda" and self.graph is None:
-                self._capture()
+                with trace.span("climb: capture"):
+                    self._capture()
+                trace.count("climb.captures")
+                steps += 1
             while True:
                 if self.graph is not None:
                     self.graph.replay()
+                    trace.count("climb.replays")
                 else:
                     self._steps(self.steps)
-                if bool(self.stop):
-                    break
+                steps += self.steps
+                with trace.span("climb: wait"):
+                    if bool(trace.readback(self.stop)):
+                        break
             _, cand, cand_len, _, _, score, iters = self.state
             out = torch.cat([cand.reshape(-1), cand_len.view(torch.uint8),
                              score.view(torch.uint8),
-                             iters.view(torch.uint8)]).cpu().numpy()
+                             iters.view(torch.uint8)])
+            with trace.span("climb: wait"):
+                out = trace.readback(out).cpu().numpy()
+        trace.count("climb.batches")
+        trace.count("climb.lane_steps", B * steps)
         n = B * Cb
         return (out[:n].reshape(B, Cb),
                 np.frombuffer(out[n:n + 4 * B].tobytes(), np.int32),
@@ -862,19 +877,23 @@ def _polish_bubbles_native(cand, cand_len, branches, blen, bmask, subs,
     cand = np.ascontiguousarray(cand, dtype=np.uint8)
     Bn, Cb = cand.shape
     _, R, S = branches.shape
-    out = mod.polish_bubbles_host(
-        cand.tobytes(),
-        np.ascontiguousarray(cand_len, np.int32).tobytes(),
-        np.ascontiguousarray(branches, np.uint8).tobytes(),
-        np.ascontiguousarray(blen, np.int32).tobytes(),
-        np.ascontiguousarray(bmask, np.uint8).tobytes(),
-        np.ascontiguousarray(subs, np.float32).tobytes(),
-        Bn, Cb, R, S, int(max_iters), float(eps))
+    with trace.span("climb: native"):
+        out = mod.polish_bubbles_host(
+            cand.tobytes(),
+            np.ascontiguousarray(cand_len, np.int32).tobytes(),
+            np.ascontiguousarray(branches, np.uint8).tobytes(),
+            np.ascontiguousarray(blen, np.int32).tobytes(),
+            np.ascontiguousarray(bmask, np.uint8).tobytes(),
+            np.ascontiguousarray(subs, np.float32).tobytes(),
+            Bn, Cb, R, S, int(max_iters), float(eps))
     cand_b, len_b, score_b, iters_b = out
+    iters = np.frombuffer(iters_b, np.int32)
+    # each lane climbs on its own: its steps are its iterations
+    trace.count("climb.batches")
+    trace.count("climb.lane_steps", int(iters.sum()))
     return (np.frombuffer(cand_b, np.uint8).reshape(Bn, Cb),
             np.frombuffer(len_b, np.int32),
-            np.frombuffer(score_b, np.float32),
-            np.frombuffer(iters_b, np.int32))
+            np.frombuffer(score_b, np.float32), iters)
 
 
 def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
@@ -976,11 +995,12 @@ def polish_bubbles(cand, cand_len, branches, blen, bmask, subs,
     # read is a device sync); every iteration on the CPU
     poll_every = 1 if device.type == "cpu" else 4
     Bg, R, S = branches.shape
-    with torch.profiler.record_function(
+    with trace.span(
             f"climb (Cb,S,R)=({cand.shape[1]},{S},{R}) x{Bg} host-stepped"):
         out = _converge(put(cand, np.uint8), put(cand_len, np.int32),
                         put(branches, np.uint8), put(blen, np.int32),
                         put(bmask, np.bool_), put(subs, np.float32),
                         groups, block_size, steepest, max_iters,
                         score_fn=score_fn, poll_every=poll_every)
-        return tuple(t.cpu().numpy() for t in out)
+        trace.count("climb.batches")
+        return tuple(trace.readback(t).cpu().numpy() for t in out)

@@ -43,7 +43,6 @@ from __future__ import annotations
 import json
 import logging
 import os
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -53,6 +52,7 @@ from flye_tpu_torch.index.sharded import ShardedKmerIndex
 from flye_tpu_torch.io.seqstore import SequenceStore
 from flye_tpu_torch.parallel.distributed import (_publish, file_barrier,
                                                  host_partition)
+from flye_tpu_torch.utils import trace
 
 logger = logging.getLogger("flye_tpu_torch")
 
@@ -77,21 +77,6 @@ def _owner_of(fwd_ids: np.ndarray, order: Dict[int, int],
     round-robin over sorted forward ids)."""
     return np.asarray([order[int(f)] % count for f in fwd_ids],
                       dtype=np.int64)
-
-
-class _log_phase:
-    """Logs the wall of a phase of the partitioned build at debug
-    level, as "<name>: X s"."""
-
-    def __init__(self, name):
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *a):
-        logger.debug("%s: %.1f s", self.name, time.perf_counter() - self.t0)
 
 
 def _group_counts(sorted_kmers: np.ndarray):
@@ -121,17 +106,17 @@ def build_partitioned_index(store: SequenceStore, cfg, work_dir: str,
     if cfg.use_minimizers:
         idx.w = cfg.minimizer_window
         min_cov = 1
-        with _log_phase("partitioned extract"):
+        with trace.span("partitioned extract"):
             kmers, seq, pos, flip = idx._extract_selected(
                 my_ids, w=cfg.minimizer_window, sample=1)
     else:
         idx.w = 1
-        with _log_phase("partitioned extract"):
+        with trace.span("partitioned extract"):
             kmers, seq, pos, flip = idx._extract_selected(
                 my_ids, w=1, sample=cfg.assemble_kmer_sample)
 
         # ---- 1. count exchange ----
-        with _log_phase("partitioned count exchange"):
+        with trace.span("partitioned count exchange"):
             order = np.argsort(kmers)
             uk, starts = _group_counts(kmers[order])
             uc = np.diff(np.concatenate(
@@ -169,7 +154,7 @@ def build_partitioned_index(store: SequenceStore, cfg, work_dir: str,
         # looked up once per distinct k-mer, in ascending order (a
         # search with sorted queries walks the table in order), then
         # spread to the stream positions
-        with _log_phase("partitioned freq join"):
+        with trace.span("partitioned freq join"):
             ufreq = np.zeros(len(uk), dtype=np.int64)
             for s in range(P):
                 z = np.load(os.path.join(pdir, f"gcounts_{s}.npz"))
@@ -184,7 +169,7 @@ def build_partitioned_index(store: SequenceStore, cfg, work_dir: str,
             del uk, ushard, inv, ufreq
 
         # ---- per-read selection with exact global frequencies ----
-        with _log_phase("partitioned select"):
+        with trace.span("partitioned select"):
             kmers, seq, pos, flip = idx._select_with_freq(
                 kmers, seq, pos, flip, freq.astype(np.int32),
                 cfg.meta_read_top_kmer_rate,
@@ -193,7 +178,7 @@ def build_partitioned_index(store: SequenceStore, cfg, work_dir: str,
         min_cov = 2
 
     # ---- 3. posting exchange; shard-local sort + finalize ----
-    with _log_phase("partitioned posting exchange"):
+    with trace.span("partitioned posting exchange"):
         shard = ShardedKmerIndex.shard_of(kmers, P)
         for s in range(P):
             m = shard == s
@@ -211,7 +196,7 @@ def build_partitioned_index(store: SequenceStore, cfg, work_dir: str,
 
     # local (total, uniq_n) of count >= min_cov k-mers, then the global
     # sums: the repetitive cutoff is rate x GLOBAL mean frequency
-    with _log_phase("partitioned finalize"):
+    with trace.span("partitioned finalize"):
         if len(kmers):
             _, gs = _group_counts(kmers)
             cnts = np.diff(np.concatenate(

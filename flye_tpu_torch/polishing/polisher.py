@@ -30,6 +30,7 @@ from flye_tpu_torch.mapping.mapper import ReadMapper, uniform_alignments
 from flye_tpu_torch.ops.polish import polish_bubbles
 from flye_tpu_torch.polishing.matrices import get_subs_matrix
 from flye_tpu_torch.polishing.windows import Bubble, compose, make_bubbles
+from flye_tpu_torch.utils import trace
 from flye_tpu_torch.utils.logs import stage_timer
 
 logger = logging.getLogger("flye_tpu_torch")
@@ -190,8 +191,9 @@ def _run_bucket(items: List[Tuple[Bubble, List[np.ndarray]]],
         for lo in range(0, len(chunks_src), max_b):
             chunk = chunks_src[lo:lo + max_b]
             B = _quantize_batch(len(chunk), max_b)
-            cand, clen, branches, blen, bmask = _pack_chunk(
-                chunk, cb, sb, rb, B)
+            with trace.span("bubbles: pack"):
+                cand, clen, branches, blen, bmask = _pack_chunk(
+                    chunk, cb, sb, rb, B)
             t0 = time.perf_counter()
             out_c, out_l, _, it_h = polish_bubbles(
                 cand, clen, branches, blen, bmask, subs, max_iters=iters)
@@ -199,12 +201,16 @@ def _run_bucket(items: List[Tuple[Bubble, List[np.ndarray]]],
                 "bucket (%d,%d,%d) x%d: %.1fs, iters med/max %d/%d",
                 cb, sb, rb, B, time.perf_counter() - t0,
                 int(np.median(it_h)), int(it_h.max()))
-            for i, (b, brs) in enumerate(chunk):
-                b.polished = out_c[i, :out_l[i]].copy()
-                if collect_retry and it_h[i] >= stage1:
-                    retry.append((b, brs))
+            trace.count("climb.lane_steps_used",
+                        int(it_h[:len(chunk)].sum()))
+            with trace.span("bubbles: write-back"):
+                for i, (b, brs) in enumerate(chunk):
+                    b.polished = out_c[i, :out_l[i]].copy()
+                    if collect_retry and it_h[i] >= stage1:
+                        retry.append((b, brs))
 
     run_chunks(items, stage1, two_stage)
+    trace.count("climb.retry_lanes", len(retry))
     if retry:
         logger.debug("bucket (%d,%d,%d): %d/%d lanes to full depth",
                      cb, sb, rb, len(retry), len(items))
@@ -354,8 +360,9 @@ def _run_phase_bus(bus, items: Dict[Tuple[int, int, int], List],
         for lo in range(0, len(lst), max_b):
             chunk = lst[lo:lo + max_b]
             B = _quantize_batch(len(chunk), max_b)
-            cand, clen, branches, blen, bmask = _pack_chunk(
-                chunk, cb, sb, rb, B)
+            with trace.span("bubbles: pack"):
+                cand, clen, branches, blen, bmask = _pack_chunk(
+                    chunk, cb, sb, rb, B)
             tid = f"t{_task_seq[0]}"
             _task_seq[0] += 1
             bus.submit("polish", tid, dict(
@@ -364,10 +371,11 @@ def _run_phase_bus(bus, items: Dict[Tuple[int, int, int], List],
                 max_iters=np.int32(2 * cb)))
             tasks.append((tid, chunk))
     results = bus.collect("polish", [t for t, _ in tasks])
-    for tid, chunk in tasks:
-        out_c, out_l = results[tid]["cand"], results[tid]["clen"]
-        for i, (b, _) in enumerate(chunk):
-            b.polished = out_c[i, :out_l[i]].copy()
+    with trace.span("bubbles: write-back"):
+        for tid, chunk in tasks:
+            out_c, out_l = results[tid]["cand"], results[tid]["clen"]
+            for i, (b, _) in enumerate(chunk):
+                b.polished = out_c[i, :out_l[i]].copy()
 
 
 def _run_phase(items: Dict[Tuple[int, int, int], List],
@@ -390,27 +398,33 @@ def polish_bubble_set(bubbles: List[Bubble], platform: str) -> None:
     # phase 1: pre-polish rich bubbles with 5 median-length branches
     rich = [b for b in bubbles if len(b.branches) > 2 * _PRE_POLISH]
     if rich:
-        items: Dict[Tuple[int, int, int], List] = {}
-        for b in rich:
-            srt = sorted(b.branches, key=len)
-            left = len(srt) // 2 - _PRE_POLISH // 2
-            sel = srt[left:left + _PRE_POLISH]
-            cb, sb = _bucket_for(len(b.candidate),
-                                 max(len(x) for x in sel))
-            items.setdefault((cb, sb, 8), []).append((b, sel))
-        _run_phase(_coalesce(items), subs)
+        with trace.span("bubbles: pack"):
+            items: Dict[Tuple[int, int, int], List] = {}
+            for b in rich:
+                srt = sorted(b.branches, key=len)
+                left = len(srt) // 2 - _PRE_POLISH // 2
+                sel = srt[left:left + _PRE_POLISH]
+                cb, sb = _bucket_for(len(b.candidate),
+                                     max(len(x) for x in sel))
+                items.setdefault((cb, sb, 8), []).append((b, sel))
+            items = _coalesce(items)
+        _run_phase(items, subs)
 
     # phase 2: all branches
-    items = {}
-    for b in bubbles:
-        if not b.branches:
-            continue
-        seq = b.polished if b.polished is not None else b.candidate
-        cb, sb = _bucket_for(len(seq), max(len(x) for x in b.branches))
-        rb = next((r for r in _R_BUCKETS if len(b.branches) <= r),
-                  _R_BUCKETS[-1])
-        items.setdefault((cb, sb, rb), []).append((b, b.branches))
-    _run_phase(_coalesce(items), subs)
+    with trace.span("bubbles: pack"):
+        items = {}
+        for b in bubbles:
+            if not b.branches:
+                continue
+            seq = b.polished if b.polished is not None else b.candidate
+            cb, sb = _bucket_for(len(seq),
+                                 max(len(x) for x in b.branches))
+            rb = next((r for r in _R_BUCKETS if len(b.branches) <= r),
+                      _R_BUCKETS[-1])
+            items.setdefault((cb, sb, rb), []).append((b, b.branches))
+        items = _coalesce(items)
+    trace.count("polish.bubbles", sum(len(v) for v in items.values()))
+    _run_phase(items, subs)
 
     # phase 3: homopolymer + dinucleotide re-estimation (reference:
     # HomoPolisher / DinucleotideFixer applied per bubble after the
@@ -430,29 +444,32 @@ def _run_hopo_phase(bubbles: List[Bubble], platform: str) -> None:
         return
     mod = native.get()
     obs_logp, genome_logp = get_hopo_model(platform)
-    cand_off = np.zeros(len(todo) + 1, np.int64)
-    bb_off = np.zeros(len(todo) + 1, np.int64)
-    for i, b in enumerate(todo):
-        cand_off[i + 1] = cand_off[i] + len(b.polished)
-        bb_off[i + 1] = bb_off[i] + len(b.branches)
-    cand_flat = np.concatenate([b.polished for b in todo]) \
-        if cand_off[-1] else np.zeros(0, np.uint8)
-    all_br = [br for b in todo for br in b.branches]
-    br_off = np.zeros(len(all_br) + 1, np.int64)
-    br_off[1:] = np.cumsum([len(x) for x in all_br])
-    br_flat = np.concatenate(all_br) if len(all_br) \
-        else np.zeros(0, np.uint8)
-    out_flat_b, out_off_b = mod.polish_hopo_host(
-        np.ascontiguousarray(cand_flat, np.uint8),
-        cand_off, np.ascontiguousarray(br_flat, np.uint8),
-        br_off, bb_off,
-        np.ascontiguousarray(obs_logp, np.float64),
-        np.ascontiguousarray(genome_logp, np.float64),
-        4, 3, _HOPO_MIN_OBS, _HOPO_MARGIN)
+    with trace.span("homopolymer: pack"):
+        cand_off = np.zeros(len(todo) + 1, np.int64)
+        bb_off = np.zeros(len(todo) + 1, np.int64)
+        for i, b in enumerate(todo):
+            cand_off[i + 1] = cand_off[i] + len(b.polished)
+            bb_off[i + 1] = bb_off[i] + len(b.branches)
+        cand_flat = np.concatenate([b.polished for b in todo]) \
+            if cand_off[-1] else np.zeros(0, np.uint8)
+        all_br = [br for b in todo for br in b.branches]
+        br_off = np.zeros(len(all_br) + 1, np.int64)
+        br_off[1:] = np.cumsum([len(x) for x in all_br])
+        br_flat = np.concatenate(all_br) if len(all_br) \
+            else np.zeros(0, np.uint8)
+    with trace.span("homopolymer: native"):
+        out_flat_b, out_off_b = mod.polish_hopo_host(
+            np.ascontiguousarray(cand_flat, np.uint8),
+            cand_off, np.ascontiguousarray(br_flat, np.uint8),
+            br_off, bb_off,
+            np.ascontiguousarray(obs_logp, np.float64),
+            np.ascontiguousarray(genome_logp, np.float64),
+            4, 3, _HOPO_MIN_OBS, _HOPO_MARGIN)
     out_flat = np.frombuffer(out_flat_b, np.uint8)
     out_off = np.frombuffer(out_off_b, np.int64)
-    for i, b in enumerate(todo):
-        b.polished = out_flat[out_off[i]:out_off[i + 1]].copy()
+    with trace.span("homopolymer: write-back"):
+        for i, b in enumerate(todo):
+            b.polished = out_flat[out_off[i]:out_off[i + 1]].copy()
 
 
 def polish(drafts: Sequence[Tuple[str, np.ndarray]],
@@ -520,21 +537,22 @@ def polish(drafts: Sequence[Tuple[str, np.ndarray]],
                 polish_bubble_set(all_bubbles, platform)
 
             new_current = []
-            for name, codes in current:
-                try:
-                    tid = targets.id_by_name(name)
-                except KeyError:
-                    new_current.append((name, codes))
-                    continue
-                bubbles = per_target.get(tid)
-                if bubbles:
-                    if trim_ends:
-                        from flye_tpu_torch.polishing.windows import \
-                            trim_low_coverage_ends
-                        bubbles = trim_low_coverage_ends(bubbles)
-                    new_current.append((name, compose(bubbles)))
-                else:
-                    new_current.append((name, codes))
+            with trace.span("polish: compose"):
+                for name, codes in current:
+                    try:
+                        tid = targets.id_by_name(name)
+                    except KeyError:
+                        new_current.append((name, codes))
+                        continue
+                    bubbles = per_target.get(tid)
+                    if bubbles:
+                        if trim_ends:
+                            from flye_tpu_torch.polishing.windows import \
+                                trim_low_coverage_ends
+                            bubbles = trim_low_coverage_ends(bubbles)
+                        new_current.append((name, compose(bubbles)))
+                    else:
+                        new_current.append((name, codes))
             current = new_current
     if return_coverage:
         return current, coverage_stats

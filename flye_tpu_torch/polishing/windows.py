@@ -21,6 +21,7 @@ import numpy as np
 
 from flye_tpu_torch.io.seqstore import SequenceStore
 from flye_tpu_torch.overlap.structs import Overlap
+from flye_tpu_torch.utils import trace
 
 logger = logging.getLogger("flye_tpu_torch")
 
@@ -144,188 +145,190 @@ def make_bubbles(target_id: int, draft: np.ndarray,
     if not alns:
         return []
 
-    # anchor popularity + coverage per draft position
-    anchor_count = np.zeros(L + 1, dtype=np.int32)
-    coverage = np.zeros(L + 1, dtype=np.int32)
-    for a in alns:
-        km = a.kmer_matches
-        pos = km[:, 0]
-        anchor_count[np.clip(pos, 0, L)] += 1
-        coverage[a.cur_begin:a.cur_end] += 1
+    with trace.span("bubbles: cut"):
+        # anchor popularity + coverage per draft position
+        anchor_count = np.zeros(L + 1, dtype=np.int32)
+        coverage = np.zeros(L + 1, dtype=np.int32)
+        for a in alns:
+            km = a.kmer_matches
+            pos = km[:, 0]
+            anchor_count[np.clip(pos, 0, L)] += 1
+            coverage[a.cur_begin:a.cur_end] += 1
 
-    # boundaries: EVERY anchor-supported 'simple' position >= _MIN_SEP
-    # from its predecessor (the fine partition that the reference's
-    # solid/simple machinery produces — median bubble ~15-50 bp — where
-    # round 2 cut ~125-500 bp windows; small bubbles are what lets the
-    # single-edit hill climb + homopolymer pass reach reference
-    # identity, reference: bubbles.py:317-359), with a max_bubble
-    # fallback cut across anchor deserts.
-    # anchor-span support: an exact-match anchor starting in
-    # (p - k_w, p] certifies that its read agrees with the draft
-    # across p — the anchor-based analog of the reference's
-    # 10-consecutive-solid-positions test (bubbles.py:218-236, which
-    # works from a base-level pileup we don't materialize).  The
-    # windowed sum is dense wherever reads are locally exact, so
-    # boundaries land every ~_MIN_SEP bases in clean sequence instead
-    # of only at positions where many reads share the anchor START.
-    k_w = 16
-    acc = np.zeros(L + 1, dtype=np.int64)
-    np.cumsum(anchor_count[:L], out=acc[1:])
-    winsum = acc[1:] - acc[np.maximum(np.arange(L) - k_w + 1, 0)]
-    qual = winsum / np.maximum(coverage[:L], 1)
-    simple = _simple_mask(draft)
-    # adaptive solidity: a cut needs at least half the contig's median
-    # anchor density (cuts at weakly-supported positions put slice
-    # noise at every junction — measured on the parity set, a fixed
-    # low threshold cost ~1e-3 identity at ~15 bp bubbles)
-    covered = coverage[:L] > 0
-    med = float(np.median(qual[covered])) if covered.any() else 0.0
-    thr = max(min_boundary_frac, 0.5 * med)
-    cand = np.flatnonzero((qual >= thr) & simple)
-    cand = cand[(cand >= _MIN_SEP) & (cand < L - _MIN_SEP)]
-    # relaxed cut tier: spans longer than _TARGET_SPAN fall off the
-    # fast kernel buckets (a span-50 window costs ~3-5x a span-20 one
-    # per bubble — polisher bucket geometry), so inside long gaps a
-    # weaker anchor-supported simple position still beats either a
-    # long window or the blind max_bubble hard cut (which has no
-    # anchor support at all)
-    relax_ok = (qual >= max(0.5 * thr, 1e-9)) & simple
-    relax_ok[:_MIN_SEP] = False
-    relax_ok[max(0, L - _MIN_SEP):] = False
-    qual_r = np.where(relax_ok, qual, -1.0)
-    boundaries = [0]
-    prev = 0
+        # boundaries: EVERY anchor-supported 'simple' position >= _MIN_SEP
+        # from its predecessor (the fine partition that the reference's
+        # solid/simple machinery produces — median bubble ~15-50 bp — where
+        # round 2 cut ~125-500 bp windows; small bubbles are what lets the
+        # single-edit hill climb + homopolymer pass reach reference
+        # identity, reference: bubbles.py:317-359), with a max_bubble
+        # fallback cut across anchor deserts.
+        # anchor-span support: an exact-match anchor starting in
+        # (p - k_w, p] certifies that its read agrees with the draft
+        # across p — the anchor-based analog of the reference's
+        # 10-consecutive-solid-positions test (bubbles.py:218-236, which
+        # works from a base-level pileup we don't materialize).  The
+        # windowed sum is dense wherever reads are locally exact, so
+        # boundaries land every ~_MIN_SEP bases in clean sequence instead
+        # of only at positions where many reads share the anchor START.
+        k_w = 16
+        acc = np.zeros(L + 1, dtype=np.int64)
+        np.cumsum(anchor_count[:L], out=acc[1:])
+        winsum = acc[1:] - acc[np.maximum(np.arange(L) - k_w + 1, 0)]
+        qual = winsum / np.maximum(coverage[:L], 1)
+        simple = _simple_mask(draft)
+        # adaptive solidity: a cut needs at least half the contig's median
+        # anchor density (cuts at weakly-supported positions put slice
+        # noise at every junction — measured on the parity set, a fixed
+        # low threshold cost ~1e-3 identity at ~15 bp bubbles)
+        covered = coverage[:L] > 0
+        med = float(np.median(qual[covered])) if covered.any() else 0.0
+        thr = max(min_boundary_frac, 0.5 * med)
+        cand = np.flatnonzero((qual >= thr) & simple)
+        cand = cand[(cand >= _MIN_SEP) & (cand < L - _MIN_SEP)]
+        # relaxed cut tier: spans longer than _TARGET_SPAN fall off the
+        # fast kernel buckets (a span-50 window costs ~3-5x a span-20 one
+        # per bubble — polisher bucket geometry), so inside long gaps a
+        # weaker anchor-supported simple position still beats either a
+        # long window or the blind max_bubble hard cut (which has no
+        # anchor support at all)
+        relax_ok = (qual >= max(0.5 * thr, 1e-9)) & simple
+        relax_ok[:_MIN_SEP] = False
+        relax_ok[max(0, L - _MIN_SEP):] = False
+        qual_r = np.where(relax_ok, qual, -1.0)
+        boundaries = [0]
+        prev = 0
 
-    def fill_gap(prev, nxt):
-        """Insert relaxed cuts so pieces stay <= _TARGET_SPAN where any
-        relaxed position allows it; fall back to max_bubble hard cuts
-        across true anchor deserts."""
-        while nxt - prev > _TARGET_SPAN:
-            lo = prev + _MIN_SEP
-            hi = min(prev + _TARGET_SPAN, nxt - _MIN_SEP)
-            if hi <= lo:
-                break
-            # prefer the upper half of the window (fewer junctions),
-            # best quality within it
-            half = max(lo, hi - (_TARGET_SPAN // 2))
-            seg = qual_r[half:hi + 1]
-            if seg.size and seg.max() > 0:
-                cut = half + int(seg.argmax())
-            else:
-                seg = qual_r[lo:hi + 1]
-                if seg.size and seg.max() > 0:
-                    cut = lo + int(seg.argmax())
-                elif nxt - prev > max_bubble:
-                    cut = prev + max_bubble
-                else:
+        def fill_gap(prev, nxt):
+            """Insert relaxed cuts so pieces stay <= _TARGET_SPAN where any
+            relaxed position allows it; fall back to max_bubble hard cuts
+            across true anchor deserts."""
+            while nxt - prev > _TARGET_SPAN:
+                lo = prev + _MIN_SEP
+                hi = min(prev + _TARGET_SPAN, nxt - _MIN_SEP)
+                if hi <= lo:
                     break
-            boundaries.append(cut)
-            prev = cut
-        return prev
+                # prefer the upper half of the window (fewer junctions),
+                # best quality within it
+                half = max(lo, hi - (_TARGET_SPAN // 2))
+                seg = qual_r[half:hi + 1]
+                if seg.size and seg.max() > 0:
+                    cut = half + int(seg.argmax())
+                else:
+                    seg = qual_r[lo:hi + 1]
+                    if seg.size and seg.max() > 0:
+                        cut = lo + int(seg.argmax())
+                    elif nxt - prev > max_bubble:
+                        cut = prev + max_bubble
+                    else:
+                        break
+                boundaries.append(cut)
+                prev = cut
+            return prev
 
-    for c in cand:
-        c = int(c)
-        prev = fill_gap(prev, c)
-        if c - prev >= _MIN_SEP:
-            boundaries.append(c)
-            prev = c
-    prev = fill_gap(prev, L)
-    boundaries.append(L)
-    # strict ascent: bubble index bi must equal its boundary-pair index
-    # (the vectorized slicing below relies on that mapping)
-    boundaries = [b for i, b in enumerate(boundaries)
-                  if i == 0 or b > boundaries[i - 1]]
+        for c in cand:
+            c = int(c)
+            prev = fill_gap(prev, c)
+            if c - prev >= _MIN_SEP:
+                boundaries.append(c)
+                prev = c
+        prev = fill_gap(prev, L)
+        boundaries.append(L)
+        # strict ascent: bubble index bi must equal its boundary-pair index
+        # (the vectorized slicing below relies on that mapping)
+        boundaries = [b for i, b in enumerate(boundaries)
+                      if i == 0 or b > boundaries[i - 1]]
 
-    pad = 12
-    bubbles = []
-    for bi, (p0, p1) in enumerate(zip(boundaries[:-1], boundaries[1:])):
-        pl = min(pad, p0)
-        pr = min(pad, L - p1)
-        bubbles.append(Bubble(target_id, bi, int(p0), int(p1),
-                              draft[p0 - pl:p1 + pr].copy(),
-                              pad_left=int(pl), pad_right=int(pr)))
+        pad = 12
+        bubbles = []
+        for bi, (p0, p1) in enumerate(zip(boundaries[:-1], boundaries[1:])):
+            pl = min(pad, p0)
+            pr = min(pad, L - p1)
+            bubbles.append(Bubble(target_id, bi, int(p0), int(p1),
+                                  draft[p0 - pl:p1 + pr].copy(),
+                                  pad_left=int(pl), pad_right=int(pr)))
 
-    # boundary markers: the draft k-mer starting at each (padded) slice
-    # position, used to snap extrapolated read slices onto exact matches
-    from flye_tpu_torch import native
-    mod = native.get()
-    bub_l_arr = np.asarray([b.start - b.pad_left for b in bubbles],
-                           dtype=np.int64)
-    bub_r_arr = np.asarray([b.end + b.pad_right for b in bubbles],
-                           dtype=np.int64)
+    with trace.span("bubbles: branches"):
+        # boundary markers: the draft k-mer starting at each (padded) slice
+        # position, used to snap extrapolated read slices onto exact matches
+        from flye_tpu_torch import native
+        mod = native.get()
+        bub_l_arr = np.asarray([b.start - b.pad_left for b in bubbles],
+                               dtype=np.int64)
+        bub_r_arr = np.asarray([b.end + b.pad_right for b in bubbles],
+                               dtype=np.int64)
 
-    def marker_rows(pos):
-        ml = np.minimum(_REFINE_M, L - pos).astype(np.int32)
-        idx = np.minimum(pos[:, None] + np.arange(_REFINE_M), L - 1)
-        return np.ascontiguousarray(draft[idx], dtype=np.uint8), ml
+        def marker_rows(pos):
+            ml = np.minimum(_REFINE_M, L - pos).astype(np.int32)
+            idx = np.minimum(pos[:, None] + np.arange(_REFINE_M), L - 1)
+            return np.ascontiguousarray(draft[idx], dtype=np.uint8), ml
 
-    if mod is not None:
-        ML, MLl = marker_rows(bub_l_arr)
-        MR, MRl = marker_rows(bub_r_arr)
-        markers = None
-    else:
-        markers = {}
-        for b in bubbles:
-            for p in (b.start - b.pad_left, b.end + b.pad_right):
-                if p not in markers:
-                    markers[p] = draft[p:min(p + _REFINE_M, L)]
-
-    # slice branches: all of an alignment's boundary projections run
-    # vectorized (at the fine partition there are ~20x more bubbles
-    # than round 2's windows; a per-bubble Python loop would dominate)
-    bounds_arr = np.asarray(boundaries, dtype=np.int64)
-    bub_l = np.asarray([b.start - b.pad_left for b in bubbles],
-                       dtype=np.int64)
-    bub_r = np.asarray([b.end + b.pad_right for b in bubbles],
-                       dtype=np.int64)
-    # bubble index bi spans [boundaries[bi], boundaries[bi+1])
-    for a in alns:
-        km = a.kmer_matches
-        read_codes = reads.get(a.ext_id)
-        first = int(np.searchsorted(bounds_arr, a.cur_begin,
-                                    side="left"))
-        last = int(np.searchsorted(bounds_arr, a.cur_end,
-                                   side="right")) - 1
-        if last <= first:
-            continue
-        nb = last - first
-        pts = np.concatenate([bub_l[first:last], bub_r[first:last]])
-        # nearest-anchor diagonal extrapolation (vectorized _project)
-        i = np.searchsorted(km[:, 0], pts)
-        i0 = np.clip(i - 1, 0, len(km) - 1)
-        i1 = np.clip(i, 0, len(km) - 1)
-        d0 = np.abs(pts - km[i0, 0])
-        d1 = np.abs(pts - km[i1, 0])
-        use1 = d1 < d0
-        c = np.where(use1, km[i1, 0], km[i0, 0])
-        e = np.where(use1, km[i1, 1], km[i0, 1])
-        rp = (e + (pts - c)).astype(np.int64)
-        dist = np.abs(pts - c).astype(np.int64)
         if mod is not None:
-            mk = np.concatenate([ML[first:last], MR[first:last]])
-            mkl = np.concatenate([MLl[first:last], MRl[first:last]])
-            rp = np.frombuffer(mod.refine_points(
-                np.ascontiguousarray(read_codes, dtype=np.uint8),
-                mk, np.ascontiguousarray(mkl), rp, dist,
-                len(rp), _REFINE_M), np.int64)
+            ML, MLl = marker_rows(bub_l_arr)
+            MR, MRl = marker_rows(bub_r_arr)
+            markers = None
         else:
-            for j in np.flatnonzero(dist):
-                rp[j] = _refine(read_codes, markers[int(pts[j])],
-                                int(rp[j]), int(dist[j]))
-        n_read = len(read_codes)
-        # vectorized slice bounds + validity; the Python loop below
-        # only walks VALID branches (the per-t min/max/int scalar work
-        # was ~60% of extraction wall at 420 kb, profiled)
-        rp0 = np.clip(rp[:nb], 0, n_read)
-        rp1 = np.maximum(rp0, np.clip(rp[nb:], 0, n_read))
-        blen_a = rp1 - rp0
-        span_a = bub_r[first:last] - bub_l[first:last]
-        # discard wildly divergent branches (bad projections)
-        ok = (blen_a >= span_a // 2) & (blen_a <= 2 * span_a + 16)
-        for t in np.flatnonzero(ok):
-            b = bubbles[first + t]
-            if len(b.branches) < max_branches:
-                b.branches.append(read_codes[rp0[t]:rp1[t]])
+            markers = {}
+            for b in bubbles:
+                for p in (b.start - b.pad_left, b.end + b.pad_right):
+                    if p not in markers:
+                        markers[p] = draft[p:min(p + _REFINE_M, L)]
+
+        # slice branches: all of an alignment's boundary projections run
+        # vectorized (at the fine partition there are ~20x more bubbles
+        # than round 2's windows; a per-bubble Python loop would dominate)
+        bounds_arr = np.asarray(boundaries, dtype=np.int64)
+        bub_l = np.asarray([b.start - b.pad_left for b in bubbles],
+                           dtype=np.int64)
+        bub_r = np.asarray([b.end + b.pad_right for b in bubbles],
+                           dtype=np.int64)
+        # bubble index bi spans [boundaries[bi], boundaries[bi+1])
+        for a in alns:
+            km = a.kmer_matches
+            read_codes = reads.get(a.ext_id)
+            first = int(np.searchsorted(bounds_arr, a.cur_begin,
+                                        side="left"))
+            last = int(np.searchsorted(bounds_arr, a.cur_end,
+                                       side="right")) - 1
+            if last <= first:
+                continue
+            nb = last - first
+            pts = np.concatenate([bub_l[first:last], bub_r[first:last]])
+            # nearest-anchor diagonal extrapolation (vectorized _project)
+            i = np.searchsorted(km[:, 0], pts)
+            i0 = np.clip(i - 1, 0, len(km) - 1)
+            i1 = np.clip(i, 0, len(km) - 1)
+            d0 = np.abs(pts - km[i0, 0])
+            d1 = np.abs(pts - km[i1, 0])
+            use1 = d1 < d0
+            c = np.where(use1, km[i1, 0], km[i0, 0])
+            e = np.where(use1, km[i1, 1], km[i0, 1])
+            rp = (e + (pts - c)).astype(np.int64)
+            dist = np.abs(pts - c).astype(np.int64)
+            if mod is not None:
+                mk = np.concatenate([ML[first:last], MR[first:last]])
+                mkl = np.concatenate([MLl[first:last], MRl[first:last]])
+                rp = np.frombuffer(mod.refine_points(
+                    np.ascontiguousarray(read_codes, dtype=np.uint8),
+                    mk, np.ascontiguousarray(mkl), rp, dist,
+                    len(rp), _REFINE_M), np.int64)
+            else:
+                for j in np.flatnonzero(dist):
+                    rp[j] = _refine(read_codes, markers[int(pts[j])],
+                                    int(rp[j]), int(dist[j]))
+            n_read = len(read_codes)
+            # vectorized slice bounds + validity; the Python loop below
+            # only walks VALID branches (the per-t min/max/int scalar work
+            # was ~60% of extraction wall at 420 kb, profiled)
+            rp0 = np.clip(rp[:nb], 0, n_read)
+            rp1 = np.maximum(rp0, np.clip(rp[nb:], 0, n_read))
+            blen_a = rp1 - rp0
+            span_a = bub_r[first:last] - bub_l[first:last]
+            # discard wildly divergent branches (bad projections)
+            ok = (blen_a >= span_a // 2) & (blen_a <= 2 * span_a + 16)
+            for t in np.flatnonzero(ok):
+                b = bubbles[first + t]
+                if len(b.branches) < max_branches:
+                    b.branches.append(read_codes[rp0[t]:rp1[t]])
     return bubbles
 
 

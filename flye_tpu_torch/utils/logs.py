@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import logging
 import sys
-import time
 from contextlib import contextmanager
 from typing import Optional
 
@@ -79,14 +78,15 @@ def stage_timer(name: str, logger: Optional[logging.Logger] = None):
     """Per-stage wall-clock timing + memory introspection (the reference
     keeps per-phase timers in its hot loops, src/sequence/overlap.cpp:
     128-158, and logs RSS at stage boundaries via memory_info.h).  The
-    step is also a range of that name in a `--profile` trace."""
-    from torch.profiler import record_function
+    step is a span of that name (`utils.trace`), so also a range of that
+    name in a `--profile` trace."""
+    from flye_tpu_torch.utils.trace import span
 
     log = logger or logging.getLogger("flye_tpu_torch")
-    start = time.monotonic()
     log.info("%s: started", name)
+    step = span(name)
     try:
-        with record_function(name):
+        with step:
             yield
     finally:
         rss, peak = host_memory()
@@ -95,5 +95,4 @@ def stage_timer(name: str, logger: Optional[logging.Logger] = None):
         if dev:
             mem += (f", device {human_bytes(dev[0])} "
                     f"(peak {human_bytes(dev[1])})")
-        log.info("%s: done in %.1f s [%s]", name,
-                 time.monotonic() - start, mem)
+        log.info("%s: done in %.1f s [%s]", name, step.seconds, mem)

@@ -77,6 +77,40 @@ def test_slice_sequences_are_full_length(runs):
         assert os.path.getsize(runs / "torch" / rel) > 40000, rel
 
 
+def test_slice_job_record_has_its_spans_and_counters(runs):
+    """The port's run left its job record: the spans its CPU path
+    opens, the setup and every stage among them, and its counters."""
+    from flye_tpu_torch.utils import trace
+    rec = trace.job_record(str(runs / "torch"))
+    spans = rec["spans"]
+    for name in ("job", "pipeline: setup", "reads: load",
+                 "stage configure", "stage assembly", "stage consensus",
+                 "stage repeat", "stage contigger", "stage polishing",
+                 "stage finalize", "index build", "divergence estimation",
+                 "overlap prefetch", "disjointig extension",
+                 "sequence generation", "overlap: probe", "overlap: gather",
+                 "overlap: prep", "overlap: chain dp",
+                 "overlap: chain dp host", "overlap: finish",
+                 "overlap: device wait", "polishing iteration 1/1",
+                 "polish: read mapping", "polish: bubble extraction",
+                 "polish: bubble kernels", "bubbles: pack", "climb: native",
+                 "bubbles: write-back", "polish: homopolymer/dinucleotide"):
+        assert spans[name]["calls"] >= 1, name
+    assert spans["job"]["calls"] == 1
+    assert rec["wall_s"] == spans["job"]["total_s"]
+    assert all(0 <= s["self_s"] <= s["total_s"] + 1e-9
+               for s in spans.values())
+    c = rec["counters"]
+    for name in ("reads.count", "reads.bases", "overlap.queries",
+                 "overlap.batches", "overlap.k1_rows", "overlap.kept",
+                 "polish.bubbles", "climb.batches", "climb.lane_steps"):
+        assert c[name] > 0, name
+    assert c["reads.bases"] > 25 * 40_000 * 0.9
+    assert 0 < c["climb.lane_steps_used"] <= c["climb.lane_steps"]
+    # the CPU path reads nothing back from a card, captures no graph
+    assert "device.readbacks" not in c and "climb.captures" not in c
+
+
 @pytest.mark.parametrize("stage", ["contigger", "polishing"])
 def test_resume_reproduces_assembly(runs, stage):
     """A run resumed at the contigger reloads the repeat stage's graph
