@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py [--genome-mb 1.0] [--main-device cuda|cpu]
                           [--phases chain,polish,lev,main,fused,hifi,
-                                    climb,k1paths,k23paths,k4paths,index,
-                                    optstages,multiproc,sharded]
+                                    climb,k1paths,k23paths,k4paths,
+                                    anchorpaths,index,optstages,
+                                    multiproc,sharded]
 
 Phases (each raises on failure; the script then exits nonzero and
 prints no result):
@@ -51,8 +52,10 @@ prints no result):
      1 Mb genome (HIFI_COVERAGE = 20x, 15 kb reads, 0.5% error) to
      `assembly.fasta`,
      then the standalone polisher `--polish-target` on that run's
-     draft: K1, K4 and K5 must have launched, the assembly must reach
-     HIFI_ASSEMBLY_IDENTITY_FLOOR with HIFI_ASSEMBLY_CONTIGS contigs,
+     draft: K1, K4, K5 and the two gathers that feed K5 on one card
+     (anchor_geometry, anchor_rows) must have launched, the assembly
+     must reach HIFI_ASSEMBLY_IDENTITY_FLOOR with HIFI_ASSEMBLY_CONTIGS
+     contigs,
      and polished_1.fasta the draft's identity with its contig count;
      then a copy of the HiFi run resumed from consensus with
      FLYE_TPU_FUSED unset (the default route: K2+K3 take K4's buckets)
@@ -169,6 +172,14 @@ prints no result):
      and device peak.  Its launches are the `sharded-units` ((a)) and
      `partitioned` ((b), both processes summed) paths of the kernels
      line.
+ 16. (`anchorpaths`, run after 7) the gathers that feed K5 on one card,
+     anchor_geometry and anchor_rows (`csrc/levenshtein.cu`), at phase
+     7's own launches (per run and shape, the launch with the most
+     slots or rows): bit for bit against their plain versions on the
+     card, two launches bitwise equal, timed beside the plain version
+     and the bytes bound, with the device memory each call takes.
+     `--hifi-plain` routes them to their plain versions with the other
+     kernels.
 Phases 5 and 7 climb device-resident (CUDA-graph replays) and print a
 census of their runs: every kernel's eager launches and summed device
 time by shape (a pair of CUDA events right around each launcher call,
@@ -186,7 +197,7 @@ on the CPU instead (how their floors were measured; (a) is skipped);
 `--phases` runs the build and the named
 phases only (chain 2, polish 3, lev 4, main 5, fused 6, hifi 7, k1paths
 8, k23paths 9, k4paths 10, climb 11, index 12, optstages 13, multiproc
-14, sharded 15).
+14, sharded 15, anchorpaths 16).
 """
 
 import argparse
@@ -244,12 +255,21 @@ KERNELS = {
                      "flye_tpu/ops/polish_pallas.py:365"),
     "levenshtein": ("flye_tpu_torch/csrc/levenshtein.cu",
                     "flye_tpu/ops/align_pallas.py:26"),
+    # no TPU twin: on one card they take over the host's segment tiling
+    # (`anchored_divergence`) and row padding (`SegmentBatcher.run`)
+    "anchor_geometry": ("flye_tpu_torch/csrc/levenshtein.cu",
+                        "flye_tpu/ops/align.py:135"),
+    "anchor_rows": ("flye_tpu_torch/csrc/levenshtein.cu",
+                    "flye_tpu/ops/align.py:93"),
 }
 # kernels each driven path must launch (and, on the raw path, K4 must
 # not: FLYE_TPU_FUSED is off there)
 RAW_PATH_KERNELS = ("chain_dp", "polish_backward", "polish_forward_score",
                     "levenshtein")
-HIFI_PATH_KERNELS = ("chain_dp", "polish_fused", "levenshtein")
+HIFI_PATH_KERNELS = ("chain_dp", "polish_fused", "levenshtein",
+                     "anchor_geometry", "anchor_rows")
+# the gathers that feed K5 on one card (`ops.align.anchored_distances`)
+ANCHOR_KERNELS = ("anchor_geometry", "anchor_rows")
 # the wrappers whose inputs the census of a run notes: kernel, module,
 # attribute
 CENSUS_WRAPPERS = (
@@ -258,6 +278,8 @@ CENSUS_WRAPPERS = (
     ("polish_forward_score", "polish", "_forward_scores_cuda"),
     ("polish_fused", "polish", "_fused_scores_cuda"),
     ("levenshtein", "align", "_edit_distance_cuda"),
+    ("anchor_geometry", "align", "_anchor_geometry_cuda"),
+    ("anchor_rows", "align", "_anchor_rows_cuda"),
 )
 # every file of a HiFi run's output directory but its log, params.json
 # and the draft (tests/test_torch_hifi.py's list)
@@ -286,6 +308,10 @@ K23_CAPTURES = {}
 # (run tag, Cb, S, R, lanes) -> the same for K4 on the HiFi and
 # polish-target runs
 K4_CAPTURES = {}
+# (run tag, kernel, shape) -> (slots or rows, host copies of the
+# wrapper's arguments) of the largest anchor_geometry and anchor_rows
+# launch of each run and shape, for phase 16
+ANCHOR_CAPTURES = {}
 # run tag -> the launches of that run whose inputs the census keeps
 CAPTURE_KERNELS = {"main": "polish_forward_score", "hifi": "polish_fused",
                    "hifi-pt": "polish_fused"}
@@ -346,6 +372,23 @@ def k5_work(B, S, alen, blen):
     n_bytes = 12 * B + int(((sectors(a) + sectors(b)) * reads).sum())
     words = int((a * -(-b // 32) * live).sum())
     return n_bytes, K5_OPS_PER_ROW_WORD * words, int((a * b).sum())
+
+
+def anchor_bytes(name, key, host, scalars):
+    """Bytes the gathers that feed K5 must move (they do no arithmetic
+    worth counting).  anchor_geometry: each anchor read once (12 bytes),
+    each overlap's strands (32), each slot's outputs written (32); the
+    run lookups are left out (how many depends on the clamps).
+    anchor_rows: per row its slot id, the slot's offsets and lengths
+    read (32 bytes), its two rows and lengths written (2 S + 8) and the
+    live codes read (host: the slots' lengths and the rows' slots)."""
+    if name == "anchor_geometry":
+        P, n_ov = scalars
+        return 12 * (P + 1) + 32 * n_ov + 32 * P
+    (S,), (n,) = key, scalars
+    al, bl, idx = host
+    live = int(al.astype(np.int64)[idx].sum() + bl.astype(np.int64)[idx].sum())
+    return (40 + 2 * S) * n + live
 
 
 def bound(n_bytes, n_ops, ops_per_s):
@@ -987,7 +1030,9 @@ class _StageTimes(logging.Handler):
 def launch_inputs(name, args):
     """From a wrapper's arguments: the launch's shape, the tensors its
     work depends on, and its scalars.  Shapes: (T, M, L) for K1, (Cb,
-    S, R, lanes) for K2, K3 and K4, (B, S) for K5."""
+    S, R, lanes) for K2, K3 and K4, (B, S) for K5, (run index?,) for
+    anchor_geometry (scalars: its slots and overlaps) and (S,) for
+    anchor_rows (scalars: its rows)."""
     if name == "chain_dp":
         cur, ext, nvalid, k, max_jump, L = args
         return ((*cur.shape, int(L)), (cur, ext, nvalid),
@@ -995,6 +1040,13 @@ def launch_inputs(name, args):
     if name == "levenshtein":
         a, alen, _, blen = args
         return tuple(a.shape), (alen, blen), ()
+    if name == "anchor_geometry":
+        anc, _, ovm, a_run = args[:4]
+        return ((a_run is not None,), (),
+                (anc.shape[0] - 1, ovm.shape[0]))
+    if name == "anchor_rows":
+        al, bl, idx, S = args[4:]
+        return (int(S),), (al, bl, idx), (idx.shape[0],)
     if name == "polish_backward":
         cand, clen, branches, blen = args[:4]
         lens = (clen, blen)
@@ -1010,7 +1062,7 @@ def launch_work(name, key, host, scalars):
     """(bytes, operations, their peak rate) of one launch, from its
     shape and the host copies of `launch_inputs`' tensors: K1_OPS_PER_
     PAIR per admissible pair for K1; `polish_work` for K2, K3 and K4;
-    `k5_work` for K5."""
+    `k5_work` for K5; `anchor_bytes` (no operations) for the gathers."""
     if name == "chain_dp":
         T, M, L = key
         pairs = k1_admissible_pairs(*host, scalars[1], L)
@@ -1019,6 +1071,8 @@ def launch_work(name, key, host, scalars):
         B, S = key
         n_bytes, ops, _ = k5_work(B, S, *host)
         return n_bytes, ops, INT32_OPS_PER_S
+    if name in ANCHOR_KERNELS:
+        return anchor_bytes(name, key, host, scalars), 0, INT32_OPS_PER_S
     Cb, S, R, B = key
     if name == "polish_backward":
         lens, pick = (*host, None), 0
@@ -1033,6 +1087,10 @@ def shape_text(name, key):
         return "(T,M,L)=({},{},{})".format(*key)
     if name == "levenshtein":
         return "[B,S]=[{},{}]".format(*key)
+    if name == "anchor_geometry":
+        return "run index" if key[0] else "no run index"
+    if name == "anchor_rows":
+        return "S={}".format(*key)
     return "(Cb,S,R)=({},{},{}) x{}".format(*key)
 
 
@@ -1131,6 +1189,8 @@ class Census:
             if name == "polish_forward_score":
                 extra = {"k2": getattr(self.local, "k2", None)}
                 self.local.k2 = None
+            if name in ANCHOR_KERNELS:
+                self._keep_anchor(name, key, scalars[0], args)
             if name == self.capture:
                 cap = {"cand": self._to_host([args[0]])[0],
                        "branches": self._to_host_once(args[2]),
@@ -1166,6 +1226,22 @@ class Census:
         self.cache = {k: v for k, v in self.cache.items()
                       if v[0]() is not None}
 
+    def _keep_anchor(self, name, key, size, args):
+        """Host copies of the arguments of an anchor_geometry or
+        anchor_rows launch with more slots or rows than any before it of
+        its run and shape (ANCHOR_CAPTURES, for phase 16); the resident
+        strands' codes and run index are copied once while they live."""
+        import torch
+        slot = (self.tag, name, key)
+        with self.lock:
+            if size <= ANCHOR_CAPTURES.get(slot, (0,))[0]:
+                return
+        host = [self._to_host_once(a) if isinstance(a, torch.Tensor) else a
+                for a in args]
+        with self.lock:
+            if size > ANCHOR_CAPTURES.get(slot, (0,))[0]:
+                ANCHOR_CAPTURES[slot] = (size, host)
+
     def _to_host_once(self, t):
         """`_to_host` of one tensor, copied once for as long as the same
         tensor object lives (a climb hands every step the same branches
@@ -1185,6 +1261,8 @@ class Census:
         """Pinned host copies of the tensors, made on the census's stream
         once the path's stream has reached this point."""
         import torch
+        if not tensors:
+            return []
         self.stream.wait_stream(torch.cuda.current_stream(tensors[0].device))
         host = []
         with torch.cuda.stream(self.stream):
@@ -1628,6 +1706,8 @@ def plain_versions():
     import flye_tpu_torch.ops.polish as P
     saved = [(C, "_chain_dp_cuda", C._chain_dp_scan),
              (A, "_edit_distance_cuda", A._edit_distance_plain),
+             (A, "_anchor_geometry_cuda", A._anchor_geometry_plain),
+             (A, "_anchor_rows_cuda", A._anchor_rows_plain),
              (P, "_score_edits_raw_cuda", P._score_edits_raw),
              (P, "_score_edits_raw_fused_cuda", P._score_edits_raw)]
     saved = [(mod, name, getattr(mod, name), plain)
@@ -1890,6 +1970,78 @@ def phase_k4_paths(report):
             "shape": [B, Cb, R, S], "path": tag, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "pair_ms": pair_ms, "cells": cap["cells"]})
+
+
+# ---------------------------------------------------------------- phase 16
+
+def anchor_check(where, name, args):
+    """Raises unless the gather `name` (anchor_geometry or anchor_rows)
+    on the card equals its plain version there on its wrapper's
+    arguments, every output bit for bit and dtype for dtype, and two
+    launches are bitwise equal.  Returns the kernel's and the plain
+    version's device ms and the device memory each call takes above
+    what was allocated before it (outputs included)."""
+    import torch
+    import flye_tpu_torch.ops.align as A
+    kern = getattr(A, f"_{name}_cuda")
+    plain = getattr(A, f"_{name}_plain")
+
+    def with_peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    out_k, peak_k = with_peak(kern)
+    out_p, peak_p = with_peak(plain)
+    for i, (x, y) in enumerate(zip(out_k, out_p)):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(
+                f"{name} != plain at {where}, output {i}: {x.dtype} / "
+                f"{y.dtype}, {int((x != y).sum())} values differ")
+    if not all(torch.equal(x, y) for x, y in zip(out_k, kern(*args))):
+        raise AssertionError(f"two {name} launches differ at {where}")
+    del out_k, out_p
+    ms = cuda_ms(lambda: kern(*args), 20)
+    plain_ms = cuda_ms(lambda: plain(*args), 3)
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "peak_bytes": peak_k,
+            "plain_peak_bytes": peak_p}
+
+
+def phase_anchor_paths(report):
+    """anchor_geometry and anchor_rows at the HiFi runs' own launches
+    (ANCHOR_CAPTURES: per run and shape the launch with the most slots
+    or rows): `anchor_check` against the plain versions, timed beside
+    them and the bytes bound, with the device memory each takes."""
+    import torch
+    if not ANCHOR_CAPTURES:
+        raise AssertionError("no anchor_geometry or anchor_rows launch "
+                             "was captured: run phase 7 first")
+    dev = torch.device("cuda")
+    for (tag, name, key), (size, host) in sorted(ANCHOR_CAPTURES.items()):
+        args = [h.to(dev) if isinstance(h, torch.Tensor) else h
+                for h in host]
+        _, work, scalars = launch_inputs(name, args)
+        n_bytes = anchor_bytes(name, key, [t.cpu().numpy() for t in work],
+                               scalars)
+        b_ms, b_by = bound(n_bytes, 0, INT32_OPS_PER_S)
+        where = f"{tag} path {name} {shape_text(name, key)} x{size}"
+        r = anchor_check(where, name, args)
+        print(f"[anchor] {where}: == plain bit for bit, launches bitwise "
+              f"equal; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
+              f"ms, bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes); device "
+              f"memory a call takes: kernel "
+              f"{r['peak_bytes'] / 2**20:.2f} MiB, plain "
+              f"{r['plain_peak_bytes'] / 2**20:.2f} MiB", flush=True)
+        report.setdefault(name, {"max_abs_err": 0, "per_shape": []})[
+            "per_shape"].append(dict(r, shape=[size, *key], path=tag,
+                                     bound_ms=b_ms, bound_by=b_by))
+        del args
+        torch.cuda.empty_cache()
+    ANCHOR_CAPTURES.clear()
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2620,15 +2772,17 @@ class LaunchCheck:
     """The inputs of the first launch of each kernel and shape made
     while `on`, held against the plain versions by `check` afterwards.
 
-    Wraps the wrappers of K1, K3 and K5 (CENSUS_WRAPPERS; a census
+    Wraps the wrappers of K1, K3, K5 and the gathers (CENSUS_WRAPPERS; a census
     entered later wraps these wrappers in turn) and copies a launch's
     inputs on the card, on the launch's stream, before it runs: K1's
     (cur, ext, nvalid), K3's (cand, clen, branches, blen, bmask, subs),
-    from which `check_k23` reruns K2 and holds its rows too, and K5's
-    (a, alen, b, blen).  Launches inside a CUDA-graph capture are their
-    graph's, not this one's."""
+    from which `check_k23` reruns K2 and holds its rows too, K5's
+    (a, alen, b, blen) and the tensors of the gathers that feed it on
+    one card (`anchor_check`).  Launches inside a CUDA-graph capture are
+    their graph's, not this one's."""
 
-    TENSORS = {"chain_dp": 3, "polish_forward_score": 6, "levenshtein": 4}
+    TENSORS = {"chain_dp": 3, "polish_forward_score": 6, "levenshtein": 4,
+               "anchor_geometry": 5, "anchor_rows": 7}
 
     def __init__(self, on=True, phase="optstages"):
         self.on = on
@@ -2662,7 +2816,8 @@ class LaunchCheck:
                     # tables and rows, which `check` recomputes and which
                     # would hold gigabytes of the card's memory
                     n = self.TENSORS[name]
-                    self.kept[key] = ([a.clone() for a in args[:n]],
+                    self.kept[key] = ([None if a is None else a.clone()
+                                       for a in args[:n]],
                                       tuple(a for a in args[n:] if not
                                             isinstance(a, torch.Tensor)))
             return fn(*args)
@@ -2685,6 +2840,9 @@ class LaunchCheck:
                 Cb, S, R, _ = shape
                 chunk = max(1, (1 << 28) // ((Cb + 1) * R * (S + 1)))
                 plain_ms = check_k23(where, args, chunk)[-1]
+            elif name in ANCHOR_KERNELS:
+                plain_ms = anchor_check(where, name, [*args, *scalars])[
+                    "plain_ms"]
             else:
                 d_k = edit_distance_batch(*args)
                 plain_ms = cuda_ms(lambda: _edit_distance_plain(*args), 1)
@@ -3469,7 +3627,7 @@ def phase_sharded():
 
 
 PHASES = ("chain", "polish", "lev", "main", "fused", "hifi", "climb",
-          "k1paths", "k23paths", "k4paths", "index",
+          "k1paths", "k23paths", "k4paths", "anchorpaths", "index",
           "optstages", "multiproc", "sharded")
 
 
@@ -3523,6 +3681,7 @@ def main():
                       ("k1paths", lambda: phase_k1_paths(report)),
                       ("k23paths", lambda: phase_k23_paths(report)),
                       ("k4paths", lambda: phase_k4_paths(report)),
+                      ("anchorpaths", lambda: phase_anchor_paths(report)),
                       ("index", lambda: phase_index(report)),
                       ("optstages", lambda: phase_optstages(
                           args.main_device, report)),

@@ -44,8 +44,30 @@
 // per row and 32-bit word (2 words a row at S = 64) and the issue of
 // the 64-bit forms of those operations.
 
+// Anchored segments (`anchor_geometry_launch`, `anchor_rows_launch`; the
+// plain versions are flye_tpu_torch/ops/align.py `_anchor_geometry_plain`
+// and `_anchor_rows_plain`, matched bit for bit).  The overlap engine hands
+// over a batch's anchors as one flat [N, 2] array, the overlap of each
+// anchor and, per overlap, where its two strands start in the resident
+// strands and how long they are.  `anchor_geometry` takes pair slot j to
+// anchors j and j + 1 (a slot across two overlaps is empty), clamps each
+// side to its strand as `_tile_segments` does and, with a run index,
+// turns [lo, hi) into the run slice [run[lo], run[hi - 1]] of the
+// compressed strand; it cuts a side longer than the widest bucket and
+// charges the slot for it as `SegmentBatcher.run` does, and keys the slot
+// by the bucket of its longer side.  `anchor_rows` gathers one bucket's
+// slots (an index list ordered by key) from the resident codes into the
+// [n, S] rows and lengths that K5 scores.  Both are memory-bound gathers:
+// a thread per slot, and a thread per 4 columns of a row.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// the segment buckets of `anchor_geometry`, passed by value
+struct Widths {
+  int n;     // buckets, widest last
+  int w[8];  // row widths, ascending
+};
 
 namespace {
 
@@ -320,7 +342,147 @@ int launch(const void* a, const void* alen, const void* b, const void* blen,
   return (int)cudaGetLastError();
 }
 
+// one side of a slot: [p0, p1) clamped to the strand, as an offset into
+// the codes and a length (0, 0 when empty)
+__device__ __forceinline__ void anchor_side(int p0, int p1, int64_t base,
+                                            int64_t n,
+                                            const int32_t* __restrict__ run,
+                                            int64_t& off, int& len) {
+  const int64_t lo = min((int64_t)p0, n);
+  const int64_t hi = max(min((int64_t)p1, n), lo);
+  if (hi <= lo) {
+    off = 0;
+    len = 0;
+  } else if (run == nullptr) {
+    off = base + lo;
+    len = (int)(hi - lo);
+  } else {
+    const int r0 = run[base + lo];
+    off = r0;
+    len = run[base + hi - 1] - r0 + 1;
+  }
+}
+
+__global__ void anchor_geometry_kernel(
+    const int32_t* __restrict__ anc, const int32_t* __restrict__ aov,
+    const int64_t* __restrict__ ovm, const int32_t* __restrict__ a_run,
+    const int32_t* __restrict__ b_run, int P, Widths widths,
+    int64_t* __restrict__ a_off, int64_t* __restrict__ b_off,
+    int32_t* __restrict__ al, int32_t* __restrict__ bl,
+    int32_t* __restrict__ extra, int32_t* __restrict__ key) {
+  const int top = widths.w[widths.n - 1];
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < P;
+       j += gridDim.x * blockDim.x) {
+    const int o = aov[j];
+    int64_t ao = 0, bo = 0;
+    int la = 0, lb = 0;
+    if (aov[j + 1] == o) {
+      const int64_t* m = ovm + 4 * (int64_t)o;
+      anchor_side(anc[2 * j], anc[2 * j + 2], m[0], m[1], a_run, ao, la);
+      anchor_side(anc[2 * j + 1], anc[2 * j + 3], m[2], m[3], b_run, bo,
+                  lb);
+    }
+    const int longer = max(la, lb);
+    extra[j] = longer > top ? longer - min(top, min(la, lb)) : 0;
+    la = min(la, top);
+    lb = min(lb, top);
+    int k = 0;
+    if (la > 0 || lb > 0) {
+      const int m = max(la, lb);
+      k = 1;
+      while (k < widths.n && widths.w[k - 1] < m) ++k;
+    }
+    a_off[j] = ao;
+    b_off[j] = bo;
+    al[j] = la;
+    bl[j] = lb;
+    key[j] = k;
+  }
+}
+
+// four codes of a row from p (n of them live, zeros after)
+__device__ __forceinline__ uint32_t gather4(const uint8_t* __restrict__ p,
+                                            int n) {
+  uint32_t x = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) x |= (uint32_t)p[i] << (8 * i);
+  return x;
+}
+
+__global__ void anchor_rows_kernel(
+    const uint8_t* __restrict__ a_codes, const uint8_t* __restrict__ b_codes,
+    const int64_t* __restrict__ idx, int n, int S,
+    const int64_t* __restrict__ a_off, const int64_t* __restrict__ b_off,
+    const int32_t* __restrict__ al, const int32_t* __restrict__ bl,
+    uint8_t* __restrict__ a_rows, uint8_t* __restrict__ b_rows,
+    int32_t* __restrict__ alen, int32_t* __restrict__ blen) {
+  const int q = S / 4;
+  const int64_t total = (int64_t)n * q;
+  for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       t < total; t += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t r = t / q;
+    const int c = 4 * (int)(t - r * q);
+    const int64_t j = idx[r];
+    const int la = al[j], lb = bl[j];
+    reinterpret_cast<uint32_t*>(a_rows + r * S)[c / 4] =
+        gather4(a_codes + a_off[j] + c, la - c);
+    reinterpret_cast<uint32_t*>(b_rows + r * S)[c / 4] =
+        gather4(b_codes + b_off[j] + c, lb - c);
+    if (c == 0) {
+      alen[r] = la;
+      blen[r] = lb;
+    }
+  }
+}
+
+int grid_for(int64_t work, int threads) {
+  const int64_t blocks = (work + threads - 1) / threads;
+  return (int)(blocks < 65536 ? (blocks > 0 ? blocks : 1) : 65536);
+}
+
 }  // namespace
+
+// anc: int32 [P + 1, 2]; aov: int32 [P + 1]; ovm: int64 [n_ov, 4] (a
+// strand base, a strand length, b strand base, b strand length); a_run,
+// b_run: int32 run index of each side's strands, or null without HPC.
+// Writes P slots: int64 a_off, b_off; int32 al, bl, extra, key.
+extern "C" int anchor_geometry_launch(const void* anc, const void* aov,
+                                      const void* ovm, const void* a_run,
+                                      const void* b_run, int P,
+                                      Widths widths, void* a_off,
+                                      void* b_off, void* al, void* bl,
+                                      void* extra, void* key, void* stream) {
+  if (P <= 0) return 0;
+  if (widths.n < 1 || widths.n > 8) return (int)cudaErrorInvalidValue;
+  anchor_geometry_kernel<<<grid_for(P, 256), 256, 0,
+                           (cudaStream_t)stream>>>(
+      (const int32_t*)anc, (const int32_t*)aov, (const int64_t*)ovm,
+      (const int32_t*)a_run, (const int32_t*)b_run, P, widths,
+      (int64_t*)a_off, (int64_t*)b_off, (int32_t*)al, (int32_t*)bl,
+      (int32_t*)extra, (int32_t*)key);
+  return (int)cudaGetLastError();
+}
+
+// idx: int64 [n] slots of one bucket; S: its row width (a multiple of 4).
+// Writes uint8 a_rows, b_rows [n, S] (zeros past each length) and int32
+// alen, blen [n].
+extern "C" int anchor_rows_launch(const void* a_codes, const void* b_codes,
+                                  const void* idx, int n, int S,
+                                  const void* a_off, const void* b_off,
+                                  const void* al, const void* bl,
+                                  void* a_rows, void* b_rows, void* alen,
+                                  void* blen, void* stream) {
+  if (n <= 0) return 0;
+  if (S < 4 || S % 4) return (int)cudaErrorInvalidValue;
+  anchor_rows_kernel<<<grid_for((int64_t)n * (S / 4), 256), 256, 0,
+                       (cudaStream_t)stream>>>(
+      (const uint8_t*)a_codes, (const uint8_t*)b_codes, (const int64_t*)idx,
+      n, S, (const int64_t*)a_off, (const int64_t*)b_off, (const int32_t*)al,
+      (const int32_t*)bl, (uint8_t*)a_rows, (uint8_t*)b_rows,
+      (int32_t*)alen, (int32_t*)blen);
+  return (int)cudaGetLastError();
+}
 
 // a, b: uint8 [B, S]; alen, blen: int32 [B]; out: int32 [B] (fully
 // written).  1 <= S <= 16384.  Returns cudaGetLastError() after the

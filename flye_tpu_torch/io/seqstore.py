@@ -149,6 +149,12 @@ class SequenceStore:
         return self._arena[base + start:base + end]
 
     @property
+    def arena(self) -> np.ndarray:
+        """The forward strands end to end, in id order."""
+        self._ensure_arena()
+        return self._arena
+
+    @property
     def lengths(self) -> np.ndarray:
         return np.asarray(self._lengths, dtype=np.int64)
 

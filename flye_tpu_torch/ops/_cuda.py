@@ -39,7 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches; reset with reset_launches()
 LAUNCHES: Dict[str, int] = {"chain_dp": 0, "polish_backward": 0,
                             "polish_forward_score": 0, "polish_fused": 0,
-                            "levenshtein": 0}
+                            "levenshtein": 0, "anchor_geometry": 0,
+                            "anchor_rows": 0}
 
 # A harness that times the launches sets this to a callable: each launch
 # is then bracketed by two CUDA events recorded on its stream just before

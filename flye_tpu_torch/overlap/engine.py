@@ -33,7 +33,9 @@ import numpy as np
 
 from flye_tpu_torch.index.kmer_index import KmerIndex
 from flye_tpu_torch.io.seqstore import SequenceStore
-from flye_tpu_torch.ops.align import SegmentBatcher, anchored_divergence
+from flye_tpu_torch.ops.align import (ResidentStrands, SegmentBatcher,
+                                      anchored_distances,
+                                      anchored_divergence)
 from flye_tpu_torch.ops.chain import chain_dp_multi
 from flye_tpu_torch.overlap.structs import Overlap
 from flye_tpu_torch.utils.ds import DisjointSet
@@ -124,6 +126,10 @@ class OverlapEngine:
         # reference's kept-alignment trace
         self.thin_anchors = thin_anchors
         self._target_lengths = target_store.lengths
+        # id(store) -> (store, its ResidentStrands) for the card's
+        # base alignment (see _align_resident)
+        self._resident: Dict[int, tuple] = {}
+        self._resident_lock = _threading.Lock()
         # divergence stats windows (reference: overlap.cpp:210-211)
         self.div_stats: List[float] = []
 
@@ -385,7 +391,6 @@ class OverlapEngine:
         # assemble Overlap objects in original group order (determinism
         # + the max_overlaps economy both depend on this order)
         div_windows: Dict[int, Dict[int, Overlap]] = {}
-        seg_batcher = SegmentBatcher() if self.nucl_alignment else None
         # (with base alignment, no overlap is kept before every one is
         # aligned, so max_overlaps cuts nothing until then)
         aligned = []
@@ -414,26 +419,13 @@ class OverlapEngine:
                     else:
                         self._keep_or_trim(ov, None, detected,
                                            div_windows.setdefault(sid, {}))
-        # each overlap's inter-anchor segments, queued for the batch's
-        # edit distances
-        pending = []
-        with trace.span("overlap: segments"):
-            for sid, ov in aligned:
-                finish = anchored_divergence(
-                    query_store.get(sid), self.targets.get(ov.ext_id),
-                    self._anchors_for(ov), self.k, use_hpc=self.use_hpc,
-                    batcher=seg_batcher)
-                pending.append((sid, ov, finish))
-
-        if pending:
-            with trace.span("overlap: base alignment"):
-                dists = seg_batcher.run()
-            with trace.span("overlap: overlaps"):
-                for sid, ov, finish in pending:
-                    div, per_seg, spans = finish(dists)
-                    ov.divergence = div
-                    self._keep_or_trim(ov, (per_seg, spans), results[sid],
-                                       div_windows.setdefault(sid, {}))
+        if aligned:
+            device = self._resident_device(query_store)
+            if device is None:
+                self._align_host(query_store, aligned, results, div_windows)
+            else:
+                self._align_resident(query_store, aligned, device, results,
+                                     div_windows)
 
         for sid_windows in div_windows.values():
             for ov in sid_windows.values():
@@ -491,6 +483,152 @@ class OverlapEngine:
             parent = flat[off:off + n].reshape(T, bucket)
             off += n
             yield (gids, bucket, score[:len(gids)], parent[:len(gids)])
+
+    def _resident_device(self, query_store) -> Optional["torch.device"]:
+        """The card that scores this engine's segments from resident
+        strands (`_align_resident`): the runtime's device when it is a
+        card and the runtime's only device, and both stores' strands fit
+        int32 positions; else None, and the segments take the host
+        path (`anchored_divergence` + `SegmentBatcher.run`)."""
+        from flye_tpu_torch.parallel.runtime import get_runtime
+        rt = get_runtime()
+        if rt.device.type != "cuda" or rt.n_devices > 1:
+            return None
+        if 2 * max(query_store.total_length,
+                   self.targets.total_length) >= 2 ** 31:
+            return None
+        return rt.device
+
+    def _flat_anchors(self, ovs: Sequence[Overlap]):
+        """`_anchors_for` of every overlap as one flat int32 [N, 2]
+        array and the overlaps' offsets into it ([len(ovs) + 1]): the
+        matches strictly inside each overlap are kept with array
+        operations, and only an overlap whose inner matches do not
+        ascend runs `_anchors_for`'s greedy pass (counted as
+        `align.anchor_fallbacks`)."""
+        n = len(ovs)
+        km = [np.asarray(ov.kmer_matches).reshape(-1, 2) for ov in ovs]
+        cnt = np.fromiter((len(k) for k in km), np.int64, n)
+        ends = np.array([(ov.cur_begin, ov.ext_begin, ov.cur_end,
+                          ov.ext_end) for ov in ovs],
+                        dtype=np.int32).reshape(n, 4)
+        km = np.ascontiguousarray(np.concatenate(
+            km + [np.zeros((0, 2), np.int32)]), dtype=np.int32)
+        # each (cur, ext) pair moves as one 64-bit word
+        pair = km.view(np.int64).reshape(-1)
+        c, e = km[:, 0], km[:, 1]
+        kov = np.repeat(np.arange(n, dtype=np.int32), cnt)
+        inner = ((c > np.repeat(ends[:, 0], cnt))
+                 & (c < np.repeat(ends[:, 2], cnt))
+                 & (e > np.repeat(ends[:, 1], cnt))
+                 & (e < np.repeat(ends[:, 3], cnt)))
+        pair, kov = pair[inner], kov[inner]
+        ce = pair.view(np.int32).reshape(-1, 2)
+        bad = np.zeros(n, dtype=bool)
+        bad[kov[1:][(kov[1:] == kov[:-1])
+                    & ((np.diff(ce[:, 0]) <= 0)
+                       | (np.diff(ce[:, 1]) <= 0))]] = True
+        fallback = [(o, self._anchors_for(ovs[o])[1:-1].astype(np.int32))
+                    for o in np.flatnonzero(bad)]
+        trace.count("align.anchor_fallbacks", len(fallback))
+        if fallback:
+            keep = ~bad[kov]
+            kov = np.concatenate([kov[keep]] + [
+                np.full(len(f), o, np.int32) for o, f in fallback])
+            pair = np.concatenate([pair[keep]] + [
+                f.view(np.int64).reshape(-1) for _, f in fallback])
+            order = np.argsort(kov, kind="stable")
+            kov, pair = kov[order], pair[order]
+        # overlap o's anchors: its start, its inner matches, its end
+        off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(kov, minlength=n) + 2, out=off[1:])
+        flat = np.empty((int(off[-1]), 2), dtype=np.int32)
+        slot = np.ones(len(flat), dtype=bool)
+        slot[off[:-1]] = slot[off[1:] - 1] = False
+        flat.view(np.int64).reshape(-1)[slot] = pair
+        flat[off[:-1]] = ends[:, :2]
+        flat[off[1:] - 1] = ends[:, 2:]
+        return flat, off
+
+    def _align_host(self, query_store, aligned, results,
+                    div_windows) -> None:
+        """Score every aligned overlap of the batch and keep or trim it
+        on the host path: each overlap's inter-anchor segments tiled by
+        `anchored_divergence` ("overlap: segments") and queued on one
+        `SegmentBatcher`, scored together ("overlap: base alignment")."""
+        batcher = SegmentBatcher()
+        with trace.span("overlap: segments"):
+            pending = [(sid, ov, anchored_divergence(
+                query_store.get(sid), self.targets.get(ov.ext_id),
+                self._anchors_for(ov), self.k, use_hpc=self.use_hpc,
+                batcher=batcher)) for sid, ov in aligned]
+        with trace.span("overlap: base alignment"):
+            dists = batcher.run()
+        with trace.span("overlap: overlaps"):
+            for sid, ov, finish in pending:
+                div, per_seg, spans = finish(dists)
+                ov.divergence = div
+                self._keep_or_trim(ov, (per_seg, spans), results[sid],
+                                   div_windows.setdefault(sid, {}))
+
+    def _strands(self, store, device) -> ResidentStrands:
+        """`store`'s strands on device, built on first use and kept while
+        this engine lives (rebuilt when sequences were added)."""
+        with self._resident_lock:
+            held = self._resident.get(id(store))
+            if (held is None or held[0] is not store
+                    or held[1].n_seqs != len(store)
+                    or held[1].device != device):
+                held = self._resident[id(store)] = (
+                    store, ResidentStrands(store, device, self.use_hpc))
+            return held[1]
+
+    def _align_resident(self, query_store, aligned, device, results,
+                        div_windows) -> None:
+        """Score every aligned overlap of the batch on the card and keep
+        or trim it, as the host path does: the anchors flattened on the
+        host ("overlap: segments"), the segments derived from them,
+        gathered from the resident strands and scored on the device, the
+        distances read back once ("overlap: base alignment"; see
+        `ops.align.anchored_distances`)."""
+        with trace.span("overlap: segments"):
+            ovs = [ov for _, ov in aligned]
+            flat, off = self._flat_anchors(ovs)
+            n = len(ovs)
+            # an overlap's inner anchors lie strictly between its ends,
+            # so its anchors ascend unless its end precedes its start
+            first = flat[off[:-1]].astype(np.int64)
+            last = flat[off[1:] - 1].astype(np.int64)
+            if (last < first).any():
+                raise ValueError("anchors must ascend in both coordinates")
+            anchor_ov = np.repeat(np.arange(n, dtype=np.int32),
+                                  np.diff(off))
+            sids = np.fromiter((sid for sid, _ in aligned), np.int64, n)
+            eids = np.fromiter((ov.ext_id for ov in ovs), np.int64, n)
+            q_res = self._strands(query_store, device)
+            t_res = self._strands(self.targets, device)
+            ov_strands = np.stack(
+                [q_res.base(sids), query_store.lengths[sids >> 1],
+                 t_res.base(eids), self.targets.lengths[eids >> 1]],
+                axis=1)
+        with trace.span("overlap: base alignment"):
+            dist = anchored_distances(q_res, t_res, flat, anchor_ov,
+                                      ov_strands)
+        with trace.span("overlap: overlaps"):
+            # per overlap as `anchored_divergence`'s finish: the total
+            # over its segments (slots off[o] .. off[o + 1] - 2) over
+            # the longer side of its anchored span plus k
+            csum = np.concatenate([[0], np.cumsum(dist)])
+            total = csum[off[1:] - 1] - csum[off[:-1]]
+            span = (last - first).max(axis=1) + self.k
+            divs = total / np.maximum(1, span)
+            for o, (sid, ov) in enumerate(aligned):
+                ov.divergence = divs[o]
+                lo, hi = off[o], off[o + 1]
+                self._keep_or_trim(
+                    ov, (dist[lo:hi - 1],
+                         np.diff(flat[lo:hi].astype(np.int64), axis=0)),
+                    results[sid], div_windows.setdefault(sid, {}))
 
     def _anchors_for(self, ov: Overlap) -> np.ndarray:
         """The overlap's two ends with the k-mer matches strictly inside

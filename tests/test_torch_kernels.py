@@ -396,6 +396,104 @@ def test_levenshtein_kernel_codes_past_3_match_plain(cuda_device, B, S):
     assert d_k[:5].tolist() == [S, S, 0, int(d_p[3]), 0]
 
 
+def anchored_inputs(seed, n_ov, per_ov, length, n_seqs, use_hpc, device):
+    """Random strands with homopolymer runs, resident on device, and
+    n_ov overlaps between random strands of them, each with per_ov
+    ascending anchors (a few sparse, so every bucket and the cut over
+    1024 are reached, and some past the strand's end)."""
+    rng = np.random.default_rng(seed)
+    store = SequenceStore()
+    for i in range(n_seqs):
+        codes = rng.integers(0, 4, length)
+        store.add(f"s{i}", np.repeat(codes, rng.integers(1, 4, length))[
+            :length].astype(np.uint8))
+    res = TA.ResidentStrands(store, device, use_hpc)
+    anchors, owner, meta = [], [], []
+    for o in range(n_ov):
+        sid, eid = (int(x) for x in rng.integers(0, 2 * n_seqs, 2))
+        k = per_ov if o % 8 else max(2, per_ov // 500)
+        top = length + (200 if o % 5 == 0 else 0)
+        anchors.append(np.stack([np.sort(rng.integers(0, top, k)),
+                                 np.sort(rng.integers(0, top, k))], 1))
+        owner.append(np.full(k, o, np.int32))
+        meta.append((res.base([sid])[0], length, res.base([eid])[0], length))
+    return (res, np.concatenate(anchors), np.concatenate(owner),
+            np.array(meta, np.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_hpc,n_ov,per_ov", [(True, 64, 300),
+                                                 (False, 64, 300),
+                                                 (True, 448, 12000)])
+def test_anchored_kernels_match_plain(cuda_device, use_hpc, n_ov, per_ov,
+                                     monkeypatch):
+    """The anchored segment pass on the card (`anchor_geometry`,
+    `anchor_rows`, then K5 per bucket) equals its plain versions run on
+    the card, bit for bit, each kernel alone and the whole pass, up to a
+    batch of more than 2^22 segments; one geometry launch, one row
+    gather and one K5 launch a bucket."""
+    res, anc, owner, meta = anchored_inputs(n_ov + per_ov, n_ov, per_ov,
+                                            64_000, 32, use_hpc,
+                                            cuda_device)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+            for x in (anc.astype(np.int32), owner, meta)]
+    geo_k = TA._anchor_geometry_cuda(*args, res.run, res.run,
+                                     TA.SEGMENT_BUCKETS)
+    geo_p = TA._anchor_geometry_plain(*args, res.run, res.run,
+                                      TA.SEGMENT_BUCKETS)
+    for x, y in zip(geo_k, geo_p):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    key = geo_p[5]
+    for b, S in enumerate(TA.SEGMENT_BUCKETS):
+        idx = torch.nonzero(key == b + 1).flatten()
+        if idx.numel():
+            rows_k = TA._anchor_rows_cuda(res.codes, res.codes,
+                                          *geo_p[:4], idx, S)
+            rows_p = TA._anchor_rows_plain(res.codes, res.codes,
+                                           *geo_p[:4], idx, S)
+            for x, y in zip(rows_k, rows_p):
+                assert x.dtype == y.dtype and torch.equal(x, y)
+            del rows_k, rows_p
+    before = dict(_cuda.LAUNCHES)
+    d_k = TA.anchored_distances(res, res, anc, owner, meta)
+    took = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()}
+    buckets = int(torch.unique(key[key > 0]).numel())
+    assert took["anchor_geometry"] == 1
+    assert took["anchor_rows"] == took["levenshtein"] == buckets >= 3
+    before = dict(_cuda.LAUNCHES)
+    with monkeypatch.context() as m:
+        for name in ("_anchor_geometry", "_anchor_rows", "_edit_distance"):
+            m.setattr(TA, f"{name}_cuda", getattr(TA, f"{name}_plain"))
+        d_p = TA.anchored_distances(res, res, anc, owner, meta)
+    assert _cuda.LAUNCHES == before
+    np.testing.assert_array_equal(d_k, d_p)
+    assert int(geo_p[4].max()) > 0       # a side cut at 1024
+    if n_ov * per_ov > 2 ** 22:
+        assert int((key > 0).sum()) >= 2 ** 22
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["assembly", "repeat"])
+def test_engine_on_card_equals_cpu(cuda_device, mode, tmp_path):
+    """A small HiFi simulation through `OverlapEngine`: on the card it
+    takes the resident path by itself and gives the overlaps of the CPU's
+    host path: coordinates, divergence, each overlap's per_seg and spans."""
+    from test_torch_anchored import _hifi_store, engine_run
+
+    from flye_tpu_torch.assemble.driver import build_read_index
+    from flye_tpu_torch.config.params import Config
+    store = _hifi_store()
+    index = build_read_index(store, Config("hifi"))
+    cpu = engine_run(store, index, mode, None, tmp_path / "cpu")
+    set_runtime(ParallelContext(cuda_device))
+    card = engine_run(store, index, mode, "runtime", tmp_path / "card")
+    assert card[0] == cpu[0]
+    assert card[1] == cpu[1]
+    assert card[2]["align.anchored_segments"] == \
+        cpu[2]["align.packed_segments"] > 1000
+    assert "align.packed_segments" not in card[2]
+
+
 # (Cb, S, R) of the polisher's buckets the JAX package fuses (K4's route)
 FUSED_BUCKETS = [(32, 31, 8), (48, 63, 8), (64, 96, 8), (96, 127, 8),
                  (160, 240, 8), (32, 31, 16), (48, 63, 16), (64, 96, 16),
