@@ -841,6 +841,9 @@ class _Climb:
                 out = trace.readback(out).cpu().numpy()
         trace.count("climb.batches")
         trace.count("climb.lane_steps", B * steps)
+        # the part of them K4 scored (0 on the other routes)
+        trace.count("climb.fused_lane_steps",
+                    B * steps if self.route == "polish_fused" else 0)
         n = B * Cb
         return (out[:n].reshape(B, Cb),
                 np.frombuffer(out[n:n + 4 * B].tobytes(), np.int32),
